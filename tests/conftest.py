@@ -24,6 +24,11 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: cluster-scale test, skipped unless --runslow is given"
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips inside the test where "
+        "torch.cuda.is_available() is false",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
