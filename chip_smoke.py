@@ -5,14 +5,24 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, drives the
-provisioning path (``repro_torch.sim.run_scale`` with the ``vector_torch``
-engine on ``cuda``) at the paper tier (1,000 VMs, 5 x 500 containers) and
-the production-fleet tier (100,000 VMs, 25 x 40,000 containers), checks the
-simulated outputs exactly against the values ``BENCH_scale.json`` records,
-and times the kernels.  Each phase prints one JSON line; any failure raises
-and the script exits non-zero.  The last lines are the kernel table, the
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+``nvcc`` per source, all started together), holds each against its plain
+PyTorch version on the card, and drives the port's two paths:
+
+* provisioning: ``repro_torch.sim.run_scale`` with the ``vector_torch``
+  engine on ``cuda`` at the paper tier (1,000 VMs, 5 x 500 containers) and
+  the production-fleet tier (100,000 VMs, 25 x 40,000 containers), checked
+  exactly against the values ``BENCH_scale.json`` records;
+* serving: ``ServeEngine`` on ``deepseek_7b`` at full width (30 layers,
+  d 4096, random float32 master weights drawn on the card from a seed) with
+  ``attn_impl="pallas"``, answering 8 requests of 512 prompt tokens with 16
+  new tokens each, 4 to a batch, so the flash-attention kernel runs at its
+  serving shape; a float32 prefill of the same weights through the kernel
+  and through the ``chunked`` attention must agree; and the block-checkpoint
+  cold start (save, lazy restore, serve) on the smoke config.
+
+It then times the kernels.  Each phase prints one JSON line; any failure
+raises and the script exits non-zero.  The last lines are the kernel table, the
 card's name and power limit as ``nvidia-smi`` reports them, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout, it
 exits non-zero and prints no result.
@@ -39,10 +49,20 @@ GIGA_MEAN_WIDTH = GIGA_FLOWS // GIGA_FRONTS  # 901
 SMALL_SHA = "bb5965a1fa885edd0aaf968dfec9bad59941edf5c13a367d869ed2eea7954c82"
 
 # H100 SXM data sheet: HBM3 bandwidth, FP64 (non-tensor) peak, INT32 peak
-# (64 INT32 lanes per SM, half the FP32 rate).
+# (64 INT32 lanes per SM, half the FP32 rate), dense BF16 tensor-core peak.
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 INT32_OPS_PER_S = 33.5e12
+BF16_OPS_PER_S = 989e12
+
+# K3 shapes: the flash-attention sweep of tests/test_kernels.py as
+# (BH, T, hd, window), one masked-row window case, and the serving shape.
+K3_SWEEP = [(8, 256, 64, None), (2, 512, 64, None), (4, 256, 128, None),
+            (4, 256, 64, 64), (1, 128, 32, 32), (2, 256, 64, 16)]
+K3_SERVE = (128, 512, 128, None)
+K3_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
+
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_BATCH = 8, 512, 16, 4
 
 CAPS = dict(
     per_stream_cap=30e6,
@@ -204,14 +224,20 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
 
-    fresh = not _build.library_path().exists()
+    names = sorted(_build.LIBRARIES)
+    fresh = {n: not _build.library_path(n).exists() for n in names}
     t0 = time.perf_counter()
-    path = _build.build()
-    _build.library()
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
+        paths = dict(zip(names, pool.map(_build.build, names)))
+    for n in names:
+        _build.library(n)
     emit("build", seconds=time.perf_counter() - t0, compiled=fresh,
-         library=str(path.relative_to(ROOT)), nvcc_flags=" ".join(_build.NVCC_FLAGS))
+         libraries={n: str(paths[n].relative_to(ROOT)) for n in names},
+         nvcc_flags={n: " ".join(_build.LIBRARIES[n][1]) for n in names})
 
 
 def phase_kernels_vs_plain() -> float:
@@ -356,7 +382,7 @@ def time_k1(ops) -> dict:
     n = ops[0].size
     dev = [torch.from_numpy(a).cuda() for a in ops]
     rate = torch.empty(n, dtype=torch.float64, device="cuda")
-    lib = _build.library()
+    lib = _build.library("cap_chain")
     ptrs = [t.data_ptr() for t in dev]
 
     def launch():
@@ -392,7 +418,7 @@ def time_k2(nodes, n_nodes: int) -> dict:
 
     n = nodes.numel()
     counts = torch.zeros(n_nodes, dtype=torch.int64, device="cuda")
-    lib = _build.library()
+    lib = _build.library("cap_chain")
 
     def launch():
         counts.zero_()
@@ -418,11 +444,269 @@ def time_k2(nodes, n_nodes: int) -> dict:
     return out
 
 
-def phase_timings(giga: dict) -> tuple[dict, dict]:
+def k3_operands(bh: int, t: int, hd: int, dtype: str, seed: int):
+    """q, k, v on the card: numpy normal draws rounded once to ``dtype``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((bh, t, hd), dtype=np.float32))
+            .to(device="cuda", dtype=getattr(torch, dtype)) for _ in range(3)]
+
+
+def phase_k3_vs_plain() -> dict:
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    worst, per_shape = {}, []
+    cases = [(shape, dt) for dt in ("bfloat16", "float32") for shape in K3_SWEEP]
+    cases.append((K3_SERVE, "bfloat16"))
+    for (bh, t, hd, window), dt in cases:
+        q, k, v = k3_operands(bh, t, hd, dt, seed=bh * 1000 + t + hd)
+        got = fa.flash_attention_bhtd(q, k, v, scale=hd**-0.5, window=window)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_torch(q, k, v, scale=hd**-0.5, window=window)
+        check(got.dtype == q.dtype and got.shape == q.shape, f"K3 output at {(bh, t, hd)}")
+        check(bool(torch.isfinite(got).all()), f"K3 non-finite at {(bh, t, hd, window)} {dt}")
+        err = float((got.float() - want.float()).abs().max())
+        check(err <= K3_TOL[dt], f"K3 vs plain at {(bh, t, hd, window)} {dt}: max err {err}")
+        worst[dt] = max(worst.get(dt, 0.0), err)
+        per_shape.append({"bh": bh, "t": t, "hd": hd, "window": window, "dtype": dt,
+                          "max_abs_err": err})
+    emit("k3_vs_plain", tolerances=K3_TOL, worst=worst, shapes=per_shape)
+    return {"worst": worst, "serve_err": per_shape[-1]["max_abs_err"]}
+
+
+def serve_prompts(cfg, n: int, length: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=length) for _ in range(n)]
+
+
+def phase_serve_full_width() -> dict:
+    """deepseek_7b at full width through ServeEngine on the card, with K3."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.params import tree_leaves_with_path
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config("deepseek_7b"), attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, max_batch=SERVE_BATCH, device="cuda")
+    params = eng.model.init(torch.Generator(device="cuda").manual_seed(0))
+    eng.set_params(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for _, x in tree_leaves_with_path(params))
+    check(n_params == cfg.param_count(), f"param count {n_params} vs {cfg.param_count()}")
+
+    walls = {"prefill": [], "decode": []}
+
+    def timed(kind, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t)
+            return out
+        return run
+
+    model = eng.model
+    eng.model = dataclasses.replace(model, prefill=timed("prefill", model.prefill),
+                                    decode_step=timed("decode", model.decode_step))
+    prompts = serve_prompts(cfg, SERVE_REQUESTS, SERVE_PROMPT, seed=0)
+    kernels.reset_launches()
+    t_serve = time.perf_counter()
+    for pr in prompts:
+        eng.submit(pr, max_new_tokens=SERVE_NEW)
+    done = []
+    while eng.queue:
+        done += eng.step_batch()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t_serve
+    launches = fa.flash_attention_bhtd.launches
+    n_prefills = -(-SERVE_REQUESTS // SERVE_BATCH)
+    check(len(walls["prefill"]) == n_prefills, f"prefills {len(walls['prefill'])}")
+    check(launches == cfg.n_layers * n_prefills,
+          f"K3 launches {launches} vs {cfg.n_layers} x {n_prefills}")
+    check(len(walls["decode"]) == n_prefills * (SERVE_NEW - 1), f"decode steps {len(walls['decode'])}")
+    check(all(len(r.out_tokens) == SERVE_NEW for r in done) and len(done) == SERVE_REQUESTS,
+          "every request got its tokens")
+    check(all(0 <= tok < cfg.vocab_size for r in done for tok in r.out_tokens), "token ids in range")
+    peak = torch.cuda.max_memory_allocated()
+    ttft = [r.t_first_token - r.t_submit for r in done]
+    lat = [r.t_done - r.t_submit for r in done]
+    out = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+        requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        max_batch=SERVE_BATCH, k3_launches=launches, prefills=n_prefills,
+        decode_steps=len(walls["decode"]), weights_init_s=init_s,
+        cold_path_ttft_s=init_s + ttft[0], ttft_s=ttft, latency_s=lat,
+        serve_wall_s=serve_s, prefill_wall_s=walls["prefill"], decode_wall_s=sum(walls["decode"]),
+        decode_step_mean_s=sum(walls["decode"]) / len(walls["decode"]),
+        tokens_per_s=SERVE_REQUESTS * SERVE_NEW / serve_s,
+        peak_memory_bytes=peak, first_tokens=[r.out_tokens[:4] for r in done],
+    )
+    out["profile"] = profile_prefill_and_decode(model, params, prompts[:SERVE_BATCH])
+    out["f32_check"] = f32_pallas_vs_chunked(cfg, params, prompts[:SERVE_BATCH])
+    emit("serve_full_width", **out)
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_prefill_and_decode(model, params, prompts) -> dict:
+    """Device busy time against wall time for one prefill and one decode step
+    of a full batch, from a ``torch.profiler`` trace (kernel events only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.from_numpy(np.stack(prompts).astype(np.int32)).cuda()
+    out = {}
+    cache = None
+    for kind in ("prefill", "decode"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if kind == "prefill":
+                logits, cache = model.prefill(params, {"tokens": toks}, cache_len=toks.shape[1] + 1)
+            else:
+                nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+                logits, cache = model.decode_step(params, {"tokens": nxt, "pos": toks.shape[1]}, cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        out[kind] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                         idle_share=1 - busy / (wall * 1e3), kernels=sum(1 for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                         top_ms=[[name[:80], ms] for name, ms in top])
+    return out
+
+
+def f32_pallas_vs_chunked(cfg, params, prompts) -> dict:
+    """One full-width float32 prefill through K3 and through ``chunked``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import model_for
+
+    toks = torch.from_numpy(np.stack(prompts).astype(np.int32)).cuda()
+    logits = {}
+    for impl in ("pallas", "chunked"):
+        m = model_for(dataclasses.replace(cfg, compute_dtype="float32", attn_impl=impl))
+        out, _ = m.prefill(params, {"tokens": toks})
+        logits[impl] = out
+        torch.cuda.synchronize()
+    lp, lc = logits["pallas"], logits["chunked"]
+    check(bool(torch.isfinite(lp).all()), "f32 pallas logits finite")
+    diff = float((lp - lc).abs().max())
+    scale = float(lc.abs().max())
+    last_p, last_c = lp[:, -1].argmax(-1), lc[:, -1].argmax(-1)
+    agree = float((lp.argmax(-1) == lc.argmax(-1)).float().mean())
+    check(torch.equal(last_p, last_c), f"f32 greedy tokens differ: {last_p.tolist()} vs {last_c.tolist()}")
+    check(diff <= 1e-3 * scale, f"f32 pallas vs chunked: max diff {diff} at max |logit| {scale}")
+    return dict(shape=list(lp.shape), max_abs_diff=diff, max_abs_logit=scale,
+                rel_diff=diff / scale, limit=1e-3, greedy_tokens=last_p.tolist(),
+                argmax_agreement_all_positions=agree)
+
+
+def phase_cold_start() -> dict:
+    """launch/serve's flow on deepseek_7b's smoke config: save, lazy start, serve."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_smoke("deepseek_7b"), attn_impl="pallas", compute_dtype="float32")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        fa.reset_launches()
+        eng, done = serve(cfg, requests=8, max_new_tokens=8, prompt_len=16,
+                          ckpt_dir=ckpt_dir, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention_bhtd.launches
+        check(launches == cfg.n_layers * 2, f"cold-start K3 launches {launches}")
+        stats = eng.cold_start_stats
+        check(0 < stats["first_fetch_compressed_bytes"] <= stats["total_fetch_compressed_bytes"],
+              f"cold-start fetch stats {stats}")
+        # The same checkpoint served on the CPU (plain versions) gives the same tokens.
+        cpu = ServeEngine(cfg, max_batch=4, device="cpu")
+        cpu.start(CheckpointManager(ckpt_dir), 0, eng.params, lazy=True)
+        check({k: cpu.cold_start_stats[k] for k in ("first_fetch_compressed_bytes", "read_amplification")}
+              == {k: stats[k] for k in ("first_fetch_compressed_bytes", "read_amplification")},
+              "cold-start stats on cpu vs cuda")
+        for pr in serve_prompts(cfg, 8, 16, seed=0):
+            cpu.submit(pr, max_new_tokens=8)
+        cpu_done = []
+        while cpu.queue:
+            cpu_done += cpu.step_batch()
+        check([r.out_tokens for r in done] == [r.out_tokens for r in cpu_done],
+              "cold-start tokens on the card vs the CPU")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out = dict(arch=cfg.name, k3_launches=launches, requests=len(done),
+               tokens_equal_cpu=True, **{k: v for k, v in stats.items()})
+    emit("cold_start", **out)
+    return out
+
+
+def time_k3() -> dict:
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    bh, t, hd, _ = K3_SERVE
+    q, k, v = k3_operands(bh, t, hd, "bfloat16", seed=1)
+    o = torch.empty_like(q)
+    lib = _build.library("flash_attention")
+    scale = hd**-0.5
+
+    def launch():
+        rc = lib.repro_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                       bh, t, hd, 1, scale, 2**31 - 1,
+                                       torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"K3 launch returned {rc}")
+
+    b4 = [x.view(4, bh // 4, t, hd) for x in (q, k, v)]
+    out = dict(
+        bh=bh, t=t, hd=hd, dtype="bfloat16",
+        ms=graph_ms(launch, reps=50),
+        plain_ms=event_ms(lambda: fa.flash_attention_torch(q, k, v, scale=scale), iters=20),
+        wrapper_ms=event_ms(lambda: ops.flash_attention(*b4, scale=scale), iters=50),
+        library_ms=event_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            *b4, is_causal=True, scale=scale), iters=50),
+    )
+    # causal half of 4 BH T^2 hd flops at the bf16 tensor rate; q, k, v, o once each
+    out["bound_ms"], out["bound_by"] = bound_ms(4 * bh * t * hd * 2, 4 * bh * t * t * hd / 2,
+                                                BF16_OPS_PER_S)
+    return out
+
+
+def phase_timings(giga: dict) -> tuple[dict, dict, dict]:
     k1 = {name: time_k1(ops) for name, (_, ops) in giga["fronts"].items()}
     k2 = time_k2(giga["k2_nodes_tensor"], giga["k2_nodes"])
-    emit("timings", k1=k1, k2=k2)
-    return k1, k2
+    k3 = time_k3()
+    emit("timings", k1=k1, k2=k2, k3=k3)
+    return k1, k2, k3
 
 
 def main() -> int:
@@ -440,12 +724,20 @@ def main() -> int:
     bench = json.loads((ROOT / "BENCH_scale.json").read_text())
     t_start = time.perf_counter()
 
+    # float32 products in full float32 (the defaults, stated): the f32 check
+    # compares two attention paths, not TF32 rounding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     smi, name = phase_device()
     phase_build()
     k1_err = phase_kernels_vs_plain()
+    k3_check = phase_k3_vs_plain()
     paper = phase_paper_tier(bench)
     giga = phase_giga_tier(bench["giga_burst"])
-    k1_t, k2_t = phase_timings(giga)
+    serve = phase_serve_full_width()
+    cold = phase_cold_start()
+    k1_t, k2_t, k3_t = phase_timings(giga)
 
     src = "src/repro_torch/kernels/csrc/cap_chain.cu"
     mean = k1_t["mean"]
@@ -464,6 +756,15 @@ def main() -> int:
          "bound_ms": k2_t["bound_ms"], "bound_by": k2_t["bound_by"],
          "library_ms": k2_t["library_ms"],
          "on_main_path": False, "n": k2_t["n"], "wrapper_ms": k2_t["wrapper_ms"]},
+        {"name": "flash_attention_bhtd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:25",
+         "launches": serve["k3_launches"], "max_abs_err": k3_check["serve_err"],
+         "ms": k3_t["ms"], "plain_ms": k3_t["plain_ms"],
+         "bound_ms": k3_t["bound_ms"], "bound_by": k3_t["bound_by"],
+         "library_ms": k3_t["library_ms"], "library": "scaled_dot_product_attention",
+         "on_main_path": True, "shape": [k3_t["bh"], k3_t["t"], k3_t["hd"]], "dtype": "bfloat16",
+         "wrapper_ms": k3_t["wrapper_ms"], "cold_start_launches": cold["k3_launches"]},
     ]
     # The engine keeps its per-NIC counts incrementally and never calls K2,
     # as in the JAX package; every kernel it does call must have launched.

@@ -1,4 +1,4 @@
-"""FaaSNet core: function trees, FT manager, block geometry, topologies, protocol."""
+"""FaaSNet core: function trees, FT manager, block store, topologies, protocol."""
 from .blockstore import DEFAULT_BLOCK_SIZE, BlockManifest
 from .ft_manager import FTManager, VMInfo
 from .function_tree import FTNode, FunctionTree

@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels (nvcc into a plain C library).
 
-The sources under ``csrc/`` are compiled on first use with ``nvcc`` into one
-shared library with a plain C interface, named by a hash of the sources and
-the flags, under ``build/repro_torch_kernels/`` at the root of the checkout,
-and loaded with :mod:`ctypes`.  Nothing here runs at import time: the module
+Each library in :data:`LIBRARIES` is one source under ``csrc/`` with its own
+``nvcc`` flags, compiled on first use into a shared library with a plain C
+interface, named by a hash of the source and the flags, under
+``build/repro_torch_kernels/`` at the root of the checkout, and loaded with
+:mod:`ctypes`.  The libraries are independent, so they can be built in
+parallel.  Nothing here runs at import time: the module
 imports on a host without CUDA or ``nvcc``, and only a launch on a CUDA
 tensor reaches :func:`library`.
 """
@@ -28,6 +30,25 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# The attention kernel has no bit-identity contract: multiply-adds contract.
+FLASH_NVCC_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
+
+_P, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+
+# library name -> (source under csrc/, nvcc flags, {entry point: argtypes});
+# every entry point returns a CUDA error code as int
+LIBRARIES = {
+    "cap_chain": ("cap_chain.cu", NVCC_FLAGS, {
+        # n_out, n_in, out_cap, qps, par_rate, blk, rate, n, 4 caps, stream
+        "repro_cap_chain_rates": [_P] * 7 + [_I64] + [_F64] * 4 + [_P],
+        # nodes, n, counts, stream
+        "repro_nic_flow_counts": [_P, _I64, _P, _P],
+    }),
+    "flash_attention": ("flash_attention.cu", FLASH_NVCC_FLAGS, {
+        # q, k, v, o, bh, t, hd, dtype, scale, window, stream
+        "repro_flash_attention": [_P] * 4 + [_I64] * 3 + [_I32, _F64, _I64, _P],
+    }),
+}
 
 
 def _nvcc() -> str:
@@ -38,32 +59,30 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
-
-
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+def library_path(name: str) -> Path:
+    """Where library ``name`` for its current source and flags lives."""
+    source, flags, _ = LIBRARIES[name]
+    src = CSRC / source
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
     return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless a library for them exists; return its path.
+def build(name: str) -> Path:
+    """Compile library ``name`` unless it exists; return its path.
 
     Raises ``RuntimeError`` with the compiler's output when nvcc fails.
     """
-    out = library_path()
+    out = library_path(name)
     if out.exists():
         return out
+    source, flags, _ = LIBRARIES[name]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+        cmd = [_nvcc(), *flags, "-o", tmp, str(CSRC / source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -78,14 +97,11 @@ def build() -> Path:
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The built library with every entry point's ``argtypes`` declared."""
-    lib = ctypes.CDLL(str(build()))
-    p, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    lib.repro_cap_chain_rates.argtypes = [
-        p, p, p, p, p, p, p, i64, f64, f64, f64, f64, p,
-    ]
-    lib.repro_cap_chain_rates.restype = ctypes.c_int
-    lib.repro_nic_flow_counts.argtypes = [p, i64, p, p]
-    lib.repro_nic_flow_counts.restype = ctypes.c_int
+def library(name: str) -> ctypes.CDLL:
+    """Library ``name``, built if needed, with its entry points' ``argtypes``."""
+    lib = ctypes.CDLL(str(build(name)))
+    for entry, argtypes in LIBRARIES[name][2].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

@@ -162,7 +162,7 @@ def cap_chain_rates(
     if n == 0:
         return rate
     with torch.cuda.device(n_out.device):
-        rc = library().repro_cap_chain_rates(
+        rc = library("cap_chain").repro_cap_chain_rates(
             *(t.data_ptr() for t in ops),
             rate.data_ptr(),
             n,
@@ -196,7 +196,7 @@ def nic_flow_counts(nodes: torch.Tensor, n_nodes: int) -> torch.Tensor:
     if nodes.numel() == 0:
         return counts
     with torch.cuda.device(nodes.device):
-        rc = library().repro_nic_flow_counts(
+        rc = library("cap_chain").repro_nic_flow_counts(
             nodes.data_ptr(), nodes.numel(), counts.data_ptr(), _stream()
         )
     if rc != 0:
