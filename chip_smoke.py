@@ -7,19 +7,29 @@ Run from the root of a checkout, with no arguments::
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together), holds each against its plain
-PyTorch version on the card, and drives the port's two paths:
+PyTorch version on the card (K3 at every head dim the configs use), and
+drives the port's two paths:
 
 * provisioning: ``repro_torch.sim.run_scale`` with the ``vector_torch``
   engine on ``cuda`` at the paper tier (1,000 VMs, 5 x 500 containers) and
   the production-fleet tier (100,000 VMs, 25 x 40,000 containers), checked
   exactly against the values ``BENCH_scale.json`` records;
-* serving: ``ServeEngine`` on ``deepseek_7b`` at full width (30 layers,
-  d 4096, random float32 master weights drawn on the card from a seed) with
-  ``attn_impl="pallas"``, answering 8 requests of 512 prompt tokens with 16
-  new tokens each, 4 to a batch, so the flash-attention kernel runs at its
-  serving shape; a float32 prefill of the same weights through the kernel
-  and through the ``chunked`` attention must agree; and the block-checkpoint
-  cold start (save, lazy restore, serve) on the smoke config.
+* serving: ``ServeEngine`` at full width, random float32 master weights
+  drawn on the card from a seed, answering 8 requests of 512 prompt tokens
+  with 16 new tokens each, 4 to a batch:
+  - ``deepseek_7b`` (30 layers, d 4096) with ``attn_impl="pallas"``, so the
+    flash-attention kernel (K3) runs at its serving shape; a float32
+    prefill through K3 and through ``chunked`` must agree; the
+    decode-attention kernel (K4) runs through ``ops.decode_attention`` on
+    layer 0's operands of every decode step, held against ``attend_decode``;
+  - ``mamba2_130m`` (24 Mamba2 layers, d 768, d_state 128); the SSD-scan
+    kernel (K5) runs through ``ops.ssd_scan`` on every layer's operands of
+    the first prefill, held against the model's ``ssd_chunked``; in float32
+    the decode caches must reproduce a prefill of the generated text;
+  - ``granite_moe_1b`` (24 layers, 32 experts top-8, GQA at hd 64) with
+    ``attn_impl="pallas"``, checked as deepseek_7b is;
+  - and the block-checkpoint cold start (save, lazy restore, serve) on
+    deepseek_7b's smoke config.
 
 It then times the kernels.  Each phase prints one JSON line; any failure
 raises and the script exits non-zero.  The last lines are the kernel table, the
@@ -56,11 +66,33 @@ INT32_OPS_PER_S = 33.5e12
 BF16_OPS_PER_S = 989e12
 
 # K3 shapes: the flash-attention sweep of tests/test_kernels.py as
-# (BH, T, hd, window), one masked-row window case, and the serving shape.
+# (BH, T, hd, window), one masked-row window case, every other head dim the
+# configs use (stablelm_12b_smoke 16, gemma3_1b_smoke 48, stablelm_12b 160,
+# gemma3_1b 256), gemma3_1b's local layer (window 512 over T 1024), and the
+# serving shape last.
 K3_SWEEP = [(8, 256, 64, None), (2, 512, 64, None), (4, 256, 128, None),
-            (4, 256, 64, 64), (1, 128, 32, 32), (2, 256, 64, 16)]
+            (4, 256, 64, 64), (1, 128, 32, 32), (2, 256, 64, 16),
+            (8, 256, 16, None), (8, 256, 48, None), (4, 256, 160, None),
+            (4, 256, 256, None), (4, 1024, 256, 512)]
 K3_SERVE = (128, 512, 128, None)
+K3_HD256 = (16, 1024, 256)  # gemma3_1b's global layer: 4 requests x 4 heads, T 1024
 K3_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
+
+# K4 shapes: the decode sweep of tests/test_kernels.py (B 2, H 4, hd 64) as
+# (S, valid_upto), and deepseek_7b's decode shape: BH 128 (4 requests x 32
+# heads), hd 128, the 528-slot cache rounded up to a multiple of 512.
+K4_SWEEP = [(512, 511), (1024, 700), (2048, 1)]
+K4_SERVE = (128, 1024, 128)
+K4_TOL = K3_TOL
+
+# K5 shapes: the SSD sweep of tests/test_kernels.py as (T, H, P, G, N, chunk)
+# at B 2, and mamba2_130m's full-width prefill (B 4, T 512, 24 heads x 64,
+# one group, d_state 128, the model's chunk 256).  Tolerances as there:
+# |got - want| <= atol + 3e-2 |want|.
+K5_SWEEP = [(256, 4, 64, 1, 32, 64), (128, 2, 32, 2, 16, 32), (512, 4, 64, 1, 64, 128)]
+K5_SERVE = (4, 512, 24, 64, 1, 128, 256)
+K5_ATOL = {"bfloat16": 3e-2, "float32": 1e-3}
+K5_RTOL = 3e-2
 
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_BATCH = 8, 512, 16, 4
 
@@ -189,22 +221,28 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple[float, str
 
 
 @contextlib.contextmanager
+def patched(module, name: str, make):
+    """Replace ``module.name`` by ``make(original)`` for the duration."""
+    orig = getattr(module, name)
+    setattr(module, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
 def record_engine(on_engine):
     """Hand every engine ``run_scale`` builds to ``on_engine`` before it runs."""
     from repro_torch.sim import scale
 
-    make = scale.make_sim
+    def make_and_record(make):
+        def run(cfg, **kw):
+            sim = make(cfg, **kw)
+            on_engine(sim)
+            return sim
+        return run
 
-    def make_and_record(cfg, **kw):
-        sim = make(cfg, **kw)
-        on_engine(sim)
-        return sim
-
-    scale.make_sim = make_and_record
-    try:
-        yield
-    finally:
-        scale.make_sim = make
+    return patched(scale, "make_sim", make_and_record)
 
 
 # ----------------------------------------------------------------------
@@ -223,6 +261,32 @@ def phase_device() -> tuple[str, str]:
     return smi, name
 
 
+def ptxas_summary(log: str) -> list:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v`` log."""
+    import re
+    import shutil
+
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            rows.append({"kernel": name})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and rows:
+            rows[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows:
+            rows[-1]["registers"] = int(m.group(1))
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r["kernel"] = n.replace("(anonymous namespace)::", "").split("(")[0]
+    return rows
+
+
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
@@ -235,9 +299,11 @@ def phase_build() -> None:
         paths = dict(zip(names, pool.map(_build.build, names)))
     for n in names:
         _build.library(n)
+    ptxas = {n: ptxas_summary(_build.build_log_path(n).read_text()) for n in names
+             if _build.build_log_path(n).exists()}
     emit("build", seconds=time.perf_counter() - t0, compiled=fresh,
          libraries={n: str(paths[n].relative_to(ROOT)) for n in names},
-         nvcc_flags={n: " ".join(_build.LIBRARIES[n][1]) for n in names})
+         nvcc_flags={n: " ".join(_build.LIBRARIES[n][1]) for n in names}, ptxas=ptxas)
 
 
 def phase_kernels_vs_plain() -> float:
@@ -477,28 +543,175 @@ def phase_k3_vs_plain() -> dict:
     return {"worst": worst, "serve_err": per_shape[-1]["max_abs_err"]}
 
 
+def within(got, want, atol: float, rtol: float) -> tuple[bool, float]:
+    """(|got - want| <= atol + rtol |want| everywhere, max |got - want|), in float32."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return bool((diff <= atol + rtol * w.abs()).all()), float(diff.max())
+
+
+def k4_operands(bh: int, s: int, hd: int, dtype: str, seed: int):
+    """q (BH, 1, hd), k and v (BH, S, hd) on the card: numpy normal draws."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shapes = [(bh, 1, hd), (bh, s, hd), (bh, s, hd)]
+    return [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+            .to(device="cuda", dtype=getattr(torch, dtype)) for sh in shapes]
+
+
+def phase_k4_vs_plain() -> dict:
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+
+    worst, per_case = {}, []
+
+    def run(name, q, k, v, valid, dt):
+        scale = q.shape[-1] ** -0.5
+        got = da.decode_attention_bhsd(q, k, v, valid, scale=scale)
+        torch.cuda.synchronize()
+        want = da.decode_attention_torch(q, k, v, valid, scale=scale)
+        check(got.dtype == q.dtype and got.shape == q.shape, f"K4 output at {name}")
+        check(bool(torch.isfinite(got).all()), f"K4 non-finite at {name} {dt}")
+        ok, err = within(got, want, K4_TOL[dt], K4_TOL[dt])
+        check(ok, f"K4 vs plain at {name} {dt}: max err {err}")
+        worst[dt] = max(worst.get(dt, 0.0), err)
+        per_case.append({"case": name, "bh": q.shape[0], "s": k.shape[1], "hd": q.shape[2],
+                         "dtype": dt, "max_abs_err": err})
+        return got
+
+    for dt in ("bfloat16", "float32"):
+        for s, upto in K4_SWEEP:
+            q, k, v = k4_operands(8, s, 64, dt, seed=s)
+            # through ops.decode_attention with a 1-D valid, as tests/test_kernels.py
+            valid = (torch.arange(s, device="cuda") <= upto).to(torch.int32)
+            got = ops.decode_attention(q.view(2, 4, 1, 64), k.view(2, 4, s, 64),
+                                       v.view(2, 4, s, 64), valid, scale=0.125)
+            run(f"sweep S={s} valid<={upto}", q, k, v, valid[None].expand(8, s).contiguous(), dt)
+            check(torch.equal(got.view(8, 1, 64), da.decode_attention_bhsd(
+                q, k, v, valid[None].expand(8, s).contiguous(), scale=0.125)),
+                f"ops.decode_attention vs the wrapper at S={s}")
+        # rows 1 and 5 have no valid slot: the uniform mean of v, finite
+        q, k, v = k4_operands(8, 1024, 64, dt, seed=3)
+        valid = torch.from_numpy(np.random.default_rng(3).random((8, 1024)) < 0.3).to(
+            device="cuda", dtype=torch.int32)
+        valid[1] = 0
+        valid[5] = 0
+        got = run("no-valid-slot rows 1, 5", q, k, v, valid, dt)
+        for r in (1, 5):
+            ok, err = within(got[r, 0], v[r].float().mean(0), K4_TOL[dt], K4_TOL[dt])
+            check(ok, f"K4 no-valid row {r} vs the mean of v: {err}")
+    bh, s, hd = K4_SERVE
+    q, k, v = k4_operands(bh, s, hd, "bfloat16", seed=7)
+    valid = (torch.arange(s, device="cuda") < 528).to(torch.int32)[None].expand(bh, s).contiguous()
+    run("deepseek_7b decode", q, k, v, valid, "bfloat16")
+    emit("k4_vs_plain", tolerances=K4_TOL, worst=worst, cases=per_case)
+    return {"worst": worst, "serve_err": per_case[-1]["max_abs_err"]}
+
+
+def k5_operands(b: int, t: int, h: int, p: int, g: int, n: int, dtype: str, seed: int):
+    """x, dt, a, B, C on the card as tests/test_kernels.py draws them, with numpy."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    tdt = getattr(torch, dtype)
+
+    def dev(a, dt=tdt):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device="cuda", dtype=dt)
+
+    x = dev(rng.standard_normal((b, t, h, p)))
+    dt = dev(np.logaddexp(rng.standard_normal((b, t, h)), 0.0) * 0.1, torch.float32)
+    a = dev(-np.exp(rng.standard_normal(h)), torch.float32)
+    bm = dev(rng.standard_normal((b, t, g, n)))
+    cm = dev(rng.standard_normal((b, t, g, n)))
+    return x, dt, a, bm, cm
+
+
+def ssd_flat(x, dt, a, bm, cm):
+    """The (BH, ...) operands ``ops.ssd_scan`` hands the kernel wrapper."""
+    import torch
+
+    b, t, h, p = x.shape
+    rep = h // bm.shape[2]
+
+    def heads(m):
+        return torch.repeat_interleave(m, rep, dim=2).permute(0, 2, 1, 3).reshape(b * h, t, -1)
+
+    return (x.permute(0, 2, 1, 3).reshape(b * h, t, p), dt.permute(0, 2, 1).reshape(b * h, t, 1),
+            a[None].expand(b, h).reshape(b * h, 1), heads(bm), heads(cm))
+
+
+def phase_k5_vs_plain() -> dict:
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    worst, per_case = {}, []
+    cases = [((2, *shape), dt) for dt in ("bfloat16", "float32") for shape in K5_SWEEP]
+    cases += [(K5_SERVE, dt) for dt in ("bfloat16", "float32")]
+    for (b, t, h, p, g, n, chunk), dt in cases:
+        x, dtv, a, bm, cm = k5_operands(b, t, h, p, g, n, dt, seed=t + h)
+        got = ops.ssd_scan(x, dtv, a, bm, cm, chunk=chunk)
+        torch.cuda.synchronize()
+        flat = ssd_flat(x, dtv, a, bm, cm)
+        want = ss.ssd_scan_torch(*flat).reshape(b, h, t, p).permute(0, 2, 1, 3)
+        name = (b, t, h, p, g, n, chunk)
+        check(got.dtype == x.dtype and got.shape == x.shape, f"K5 output at {name}")
+        check(bool(torch.isfinite(got).all()), f"K5 non-finite at {name} {dt}")
+        ok, err = within(got, want, K5_ATOL[dt], K5_RTOL)
+        check(ok, f"K5 vs plain at {name} {dt}: max err {err}")
+        worst[dt] = max(worst.get(dt, 0.0), err)
+        per_case.append({"b": b, "t": t, "h": h, "p": p, "g": g, "n": n, "chunk": chunk,
+                         "dtype": dt, "max_abs_err": err, "max_abs_y": float(want.float().abs().max())})
+    # the model's chunked SSD, as tests/test_kernels.py holds the Pallas kernel to it
+    x, dtv, a, bm, cm = k5_operands(1, 128, 2, 32, 1, 16, "float32", seed=0)
+    y_model, _ = ssd_chunked(x, dtv, a, bm, cm, chunk=32)
+    ok, err_model = within(ops.ssd_scan(x, dtv, a, bm, cm, chunk=32), y_model, 1e-3, 1e-3)
+    check(ok, f"K5 vs ssd_chunked: max err {err_model}")
+    emit("k5_vs_plain", atol=K5_ATOL, rtol=K5_RTOL, worst=worst, cases=per_case,
+         vs_ssd_chunked_max_abs_err=err_model)
+    serve = [c for c in per_case if (c["b"], c["t"], c["h"], c["p"], c["g"], c["n"], c["chunk"])
+             == K5_SERVE and c["dtype"] == "bfloat16"]
+    return {"worst": worst, "serve_err": serve[0]["max_abs_err"]}
+
+
 def serve_prompts(cfg, n: int, length: int, seed: int) -> list:
     rng = np.random.default_rng(seed)
     return [rng.integers(0, cfg.vocab_size, size=length) for _ in range(n)]
 
 
-def phase_serve_full_width() -> dict:
-    """deepseek_7b at full width through ServeEngine on the card, with K3."""
+def launch_counts() -> dict:
+    from repro_torch.kernels import cap_chain, decode_attention, flash_attention, ssd_scan
+
+    return {"cap_chain_rates": cap_chain.cap_chain_rates.launches,
+            "nic_flow_counts": cap_chain.nic_flow_counts.launches,
+            "flash_attention_bhtd": flash_attention.flash_attention_bhtd.launches,
+            "decode_attention_bhsd": decode_attention.decode_attention_bhsd.launches,
+            "ssd_scan_bhtpn": ssd_scan.ssd_scan_bhtpn.launches}
+
+
+def serve_traffic(cfg, seed: int = 0) -> dict:
+    """``cfg`` at full width through ServeEngine on the card: float32 master
+    weights drawn on the card from ``seed``, then 8 requests of 512 prompt
+    tokens and 16 new tokens, 4 to a batch.  Every kernel count is set to 0
+    just before the requests are submitted and read just after the last
+    finishes."""
     import dataclasses
 
     import torch
 
     from repro_torch import kernels
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.params import tree_leaves_with_path
     from repro_torch.serving.engine import ServeEngine
 
-    cfg = dataclasses.replace(get_config("deepseek_7b"), attn_impl="pallas")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, max_batch=SERVE_BATCH, device="cuda")
-    params = eng.model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = eng.model.init(torch.Generator(device="cuda").manual_seed(seed))
     eng.set_params(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -519,7 +732,7 @@ def phase_serve_full_width() -> dict:
     model = eng.model
     eng.model = dataclasses.replace(model, prefill=timed("prefill", model.prefill),
                                     decode_step=timed("decode", model.decode_step))
-    prompts = serve_prompts(cfg, SERVE_REQUESTS, SERVE_PROMPT, seed=0)
+    prompts = serve_prompts(cfg, SERVE_REQUESTS, SERVE_PROMPT, seed=seed)
     kernels.reset_launches()
     t_serve = time.perf_counter()
     for pr in prompts:
@@ -529,33 +742,232 @@ def phase_serve_full_width() -> dict:
         done += eng.step_batch()
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t_serve
-    launches = fa.flash_attention_bhtd.launches
+    launches = launch_counts()
     n_prefills = -(-SERVE_REQUESTS // SERVE_BATCH)
     check(len(walls["prefill"]) == n_prefills, f"prefills {len(walls['prefill'])}")
-    check(launches == cfg.n_layers * n_prefills,
-          f"K3 launches {launches} vs {cfg.n_layers} x {n_prefills}")
     check(len(walls["decode"]) == n_prefills * (SERVE_NEW - 1), f"decode steps {len(walls['decode'])}")
     check(all(len(r.out_tokens) == SERVE_NEW for r in done) and len(done) == SERVE_REQUESTS,
           "every request got its tokens")
     check(all(0 <= tok < cfg.vocab_size for r in done for tok in r.out_tokens), "token ids in range")
-    peak = torch.cuda.max_memory_allocated()
     ttft = [r.t_first_token - r.t_submit for r in done]
-    lat = [r.t_done - r.t_submit for r in done]
     out = dict(
         arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+        compute_dtype=cfg.compute_dtype, attn_impl=cfg.attn_impl,
         requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
-        max_batch=SERVE_BATCH, k3_launches=launches, prefills=n_prefills,
+        max_batch=SERVE_BATCH, launches=launches, prefills=n_prefills,
         decode_steps=len(walls["decode"]), weights_init_s=init_s,
-        cold_path_ttft_s=init_s + ttft[0], ttft_s=ttft, latency_s=lat,
+        cold_path_ttft_s=init_s + ttft[0], ttft_s=ttft,
+        latency_s=[r.t_done - r.t_submit for r in done],
         serve_wall_s=serve_s, prefill_wall_s=walls["prefill"], decode_wall_s=sum(walls["decode"]),
         decode_step_mean_s=sum(walls["decode"]) / len(walls["decode"]),
         tokens_per_s=SERVE_REQUESTS * SERVE_NEW / serve_s,
-        peak_memory_bytes=peak, first_tokens=[r.out_tokens[:4] for r in done],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        first_tokens=[r.out_tokens[:4] for r in done],
     )
-    out["profile"] = profile_prefill_and_decode(model, params, prompts[:SERVE_BATCH])
-    out["f32_check"] = f32_pallas_vs_chunked(cfg, params, prompts[:SERVE_BATCH])
+    return {"out": out, "model": model, "params": params, "prompts": prompts}
+
+
+def phase_serve_full_width() -> dict:
+    """deepseek_7b at full width through ServeEngine on the card, with K3, and
+    K4 on the layer-0 decode operands of every decode step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    cfg = dataclasses.replace(get_config("deepseek_7b"), attn_impl="pallas")
+    calls, steps = [0], []
+
+    def record(fn):
+        def run(q, k_cache, v_cache, k_new, v_new, k_valid, scale):
+            if calls[0] % cfg.n_layers == 0:  # layer 0 of a decode step
+                steps.append([x.clone() for x in (q, k_cache, v_cache, k_new, v_new, k_valid)])
+            calls[0] += 1
+            return fn(q, k_cache, v_cache, k_new, v_new, k_valid, scale)
+        return run
+
+    with patched(attention, "attend_decode_plus_new", record):
+        served = serve_traffic(cfg)
+    out, params = served["out"], served["params"]
+    k3 = out["launches"]["flash_attention_bhtd"]
+    check(k3 == cfg.n_layers * out["prefills"], f"K3 launches {k3} vs {cfg.n_layers} x {out['prefills']}")
+    check(len(steps) == out["decode_steps"], f"recorded decode steps {len(steps)}")
+    out["k3_launches"] = k3
+    out["k4_path"] = k4_on_decode_steps(steps, scale=cfg.hd**-0.5)
+    del steps
+    out["profile"] = profile_prefill_and_decode(served["model"], params, served["prompts"][:SERVE_BATCH])
+    out["f32_check"] = f32_pallas_vs_chunked(cfg, params, served["prompts"][:SERVE_BATCH])
     emit("serve_full_width", **out)
-    del eng, params
+    del served, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def k4_on_decode_steps(steps, scale: float) -> dict:
+    """K4's main path: ``ops.decode_attention`` on the layer-0 operands of each
+    decode step of the deepseek_7b serve (the cache after the step's write,
+    padded with invalid slots to a multiple of 512), each held against the
+    port's ``attend_decode`` on the unpadded cache."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import attend_decode
+
+    da.reset_launches()
+    worst, s_pad = 0.0, 0
+    for q, k_old, v_old, k_new, v_new, valid in steps:
+        s = k_old.shape[2]
+        # the write that follows attention: this step's key and value land at
+        # the first slot the old-cache mask leaves out (pos, or pos % S once
+        # the ring is warm)
+        slot = int(torch.nonzero(~valid)[0])
+        k, v, ok = k_old.clone(), v_old.clone(), valid.clone()
+        k[:, :, slot], v[:, :, slot], ok[slot] = k_new[:, :, 0], v_new[:, :, 0], True
+        s_pad = -(-s // 512) * 512
+        pad = (0, 0, 0, s_pad - s)
+        got = ops.decode_attention(q, torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad),
+                                   torch.nn.functional.pad(ok, (0, s_pad - s)).to(torch.int32),
+                                   scale=scale)
+        want = attend_decode(q, k, v, ok, scale)
+        good, err = within(got, want, K4_TOL["bfloat16"], K4_TOL["bfloat16"])
+        check(good, f"K4 on a served decode step vs attend_decode: max err {err}")
+        worst = max(worst, err)
+    torch.cuda.synchronize()
+    return {"launches": da.decode_attention_bhsd.launches, "steps": len(steps),
+            "shape": [int(q.shape[0] * q.shape[1]), s_pad, int(q.shape[3])],
+            "max_abs_err": worst, "tolerance": K4_TOL["bfloat16"]}
+
+
+def phase_serve_mamba2_130m() -> dict:
+    """mamba2_130m at full width through ServeEngine on the card; K5 on the SSD
+    operands of every layer of the first prefill; a float32 check that the
+    decode caches reproduce a prefill of the generated text."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import mamba2
+
+    cfg = get_config("mamba2_130m")
+    rec = []
+
+    def record(fn):
+        def run(x, dt, A, Bm, Cm, *, chunk, **kw):
+            y, final = fn(x, dt, A, Bm, Cm, chunk=chunk, **kw)
+            if len(rec) < cfg.n_layers:  # every layer of the first prefill
+                rec.append(([t.clone() for t in (x, dt, A, Bm, Cm)], chunk, y.clone()))
+            return y, final
+        return run
+
+    with patched(mamba2, "ssd_chunked", record):
+        served = serve_traffic(cfg)
+    out, params = served["out"], served["params"]
+    check(len(rec) == cfg.n_layers, f"recorded SSD calls {len(rec)}")
+    check(out["launches"]["flash_attention_bhtd"] == 0, "an attention-free model launched K3")
+    # K5's main path: ops.ssd_scan on each layer's operands as the model made them
+    ss.reset_launches()
+    worst_model, worst_f32, scale_f32 = 0.0, 0.0, 0.0
+    for i, (ops_in, chunk, y_model) in enumerate(rec):
+        got = ops.ssd_scan(*ops_in, chunk=chunk)
+        check(got.dtype == y_model.dtype and got.shape == y_model.shape, f"K5 layer {i} output")
+        err = float((got.float() - y_model.float()).abs().max())
+        top = float(y_model.float().abs().max())
+        check(err <= K5_ATOL["bfloat16"] * top, f"K5 vs ssd_chunked at layer {i}: {err} at max |y| {top}")
+        worst_model = max(worst_model, err / top)
+    torch.cuda.synchronize()
+    k5 = ss.ssd_scan_bhtpn.launches
+    check(k5 == cfg.n_layers, f"K5 launches {k5}")
+    # layer 0 in float32, through K5 and through ssd_chunked
+    x, dt, A, Bm, Cm = (t.float() for t in rec[0][0])
+    y_k = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=rec[0][1])
+    y_c, _ = mamba2.ssd_chunked(x, dt, A, Bm, Cm, chunk=rec[0][1])
+    worst_f32, scale_f32 = float((y_k - y_c).abs().max()), float(y_c.abs().max())
+    check(worst_f32 <= 1e-3 * scale_f32, f"K5 vs ssd_chunked in f32: {worst_f32} at max |y| {scale_f32}")
+    b, t, h, p = x.shape
+    out["k5_path"] = {"launches": k5, "layers": len(rec), "shape": [b * h, t, p, Bm.shape[3]],
+                      "chunk": rec[0][1], "dtype": str(rec[0][0][0].dtype).split(".")[1],
+                      "max_rel_err_vs_model": worst_model, "f32_layer0_max_abs_diff": worst_f32,
+                      "f32_layer0_max_abs_y": scale_f32, "f32_limit": 1e-3}
+    del rec
+    out["profile"] = profile_prefill_and_decode(served["model"], params, served["prompts"][:SERVE_BATCH])
+    out["f32_decode_check"] = f32_decode_consistency(cfg, params, served["prompts"][:SERVE_BATCH])
+    emit("serve_mamba2_130m", **out)
+    del served, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_decode_consistency(cfg, params, prompts) -> dict:
+    """In float32: the greedy tokens of a prefill and 15 decode steps equal the
+    argmax of one prefill of the prompt followed by those tokens, at each
+    generated position (the conv and SSM caches on the card are right)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import model_for
+
+    m = model_for(dataclasses.replace(cfg, compute_dtype="float32"))
+    toks = torch.from_numpy(np.stack(prompts).astype(np.int32)).cuda()
+    t = toks.shape[1]
+    logits, cache = m.prefill(params, {"tokens": toks}, cache_len=t + SERVE_NEW)
+    steps = [logits[:, -1]]
+    for k in range(1, SERVE_NEW):
+        nxt = steps[-1].argmax(-1)[:, None].to(torch.int32)
+        logits, cache = m.decode_step(params, {"tokens": nxt, "pos": t + k - 1}, cache)
+        steps.append(logits[:, -1])
+    step_logits = torch.stack(steps, dim=1)  # (B, new, V)
+    gen = step_logits.argmax(-1)
+    full, _ = m.prefill(params, {"tokens": torch.cat([toks, gen[:, :-1].to(torch.int32)], dim=1)})
+    full = full[:, t - 1:]
+    check(torch.equal(full.argmax(-1), gen), "f32 decode tokens vs a prefill of the generated text")
+    diff = float((full - step_logits).abs().max())
+    top = float(full.abs().max())
+    check(diff <= 1e-3 * top, f"f32 decode logits vs prefill: {diff} at max |logit| {top}")
+    return {"positions": list(gen.shape), "tokens_equal": True, "max_abs_logit_diff": diff,
+            "max_abs_logit": top, "limit_rel": 1e-3}
+
+
+def phase_serve_granite_moe_1b() -> dict:
+    """granite_moe_1b at full width through ServeEngine on the card, with K3 at
+    hd 64 under GQA; counts the (token, choice) pairs dropped at capacity."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("granite_moe_1b"), attn_impl="pallas")
+    drops = {"dropped": torch.zeros((), dtype=torch.int64, device="cuda"), "choices": 0, "calls": 0}
+
+    def count(fn):
+        def run(logits, k, capacity):
+            slot, gate, eids, aux = fn(logits, k, capacity)
+            if logits.shape[0] > SERVE_BATCH:  # a prefill: decode capacity drops nothing
+                drops["dropped"] += (slot == logits.shape[1] * capacity).sum()
+                drops["choices"] += slot.numel()
+                drops["calls"] += 1
+            return slot, gate, eids, aux
+        return run
+
+    with patched(moe, "route_topk", count):
+        served = serve_traffic(cfg)
+    out, params = served["out"], served["params"]
+    k3 = out["launches"]["flash_attention_bhtd"]
+    check(k3 == cfg.n_layers * out["prefills"], f"K3 launches {k3} vs {cfg.n_layers} x {out['prefills']}")
+    out["k3_launches"] = k3
+    out["moe_drops"] = {"capacity_factor": cfg.moe.capacity_factor, "prefill_layers": drops["calls"],
+                        "choices": drops["choices"], "dropped": int(drops["dropped"]),
+                        "dropped_share": int(drops["dropped"]) / max(drops["choices"], 1)}
+    out["profile"] = profile_prefill_and_decode(served["model"], params, served["prompts"][:SERVE_BATCH])
+    out["f32_check"] = f32_pallas_vs_chunked(cfg, params, served["prompts"][:SERVE_BATCH])
+    emit("serve_granite_moe_1b", **out)
+    del served, params
     torch.cuda.empty_cache()
     return out
 
@@ -667,14 +1079,13 @@ def phase_cold_start() -> dict:
     return out
 
 
-def time_k3() -> dict:
+def time_k3(bh: int, t: int, hd: int) -> dict:
     import torch
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
-    bh, t, hd, _ = K3_SERVE
     q, k, v = k3_operands(bh, t, hd, "bfloat16", seed=1)
     o = torch.empty_like(q)
     lib = _build.library("flash_attention")
@@ -701,12 +1112,99 @@ def time_k3() -> dict:
     return out
 
 
-def phase_timings(giga: dict) -> tuple[dict, dict, dict]:
-    k1 = {name: time_k1(ops) for name, (_, ops) in giga["fronts"].items()}
-    k2 = time_k2(giga["k2_nodes_tensor"], giga["k2_nodes"])
-    k3 = time_k3()
-    emit("timings", k1=k1, k2=k2, k3=k3)
-    return k1, k2, k3
+def time_k4() -> dict:
+    """K4 at deepseek_7b's decode shape, 528 of 1024 slots valid."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+
+    bh, s, hd = K4_SERVE
+    n_valid = SERVE_PROMPT + SERVE_NEW
+    q, k, v = k4_operands(bh, s, hd, "bfloat16", seed=2)
+    valid1 = (torch.arange(s, device="cuda") < n_valid).to(torch.int32)
+    valid = valid1[None].expand(bh, s).contiguous()
+    o = torch.empty_like(q)
+    nsplit = -(-s // da.SPLIT)
+    ws = torch.empty(bh * nsplit * (hd + 2), dtype=torch.float32, device="cuda")
+    lib = _build.library("decode_attention")
+    scale = hd**-0.5
+
+    def launch():
+        rc = lib.repro_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                                        o.data_ptr(), ws.data_ptr(), bh, s, hd, da.SPLIT, 1, scale,
+                                        torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"K4 launch returned {rc}")
+
+    b4 = [x.view(4, bh // 4, x.shape[1], hd) for x in (q, k, v)]
+    mask = valid.bool()[:, None, :]
+    out = dict(
+        bh=bh, s=s, hd=hd, valid_slots=n_valid, dtype="bfloat16",
+        ms=graph_ms(launch, reps=100),
+        plain_ms=event_ms(lambda: da.decode_attention_torch(q, k, v, valid, scale=scale), iters=50),
+        wrapper_ms=event_ms(lambda: ops.decode_attention(*b4, valid1, scale=scale), iters=100),
+        library_ms=event_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), iters=100),
+    )
+    # q, the mask and o once; k and v of the valid slots only (the output does
+    # not depend on the others); 4 BH S hd flops over the valid slots
+    n_bytes = bh * hd * 2 * 2 + bh * s * 4 + 2 * bh * n_valid * hd * 2
+    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, 4 * bh * n_valid * hd, BF16_OPS_PER_S)
+    return out
+
+
+def time_k5() -> dict:
+    """K5 at mamba2_130m's full-width prefill shape, in bf16 as the model runs it."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+
+    b, t, h, p, g, n, chunk = K5_SERVE
+    ins = k5_operands(b, t, h, p, g, n, "bfloat16", seed=5)
+    x, dt, a, bm, cm = ssd_flat(*ins)
+    dt, a = dt.contiguous(), a.contiguous()
+    y = torch.empty_like(x)
+    lib = _build.library("ssd_scan")
+    bh = b * h
+
+    def launch():
+        rc = lib.repro_ssd_scan(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
+                                cm.data_ptr(), y.data_ptr(), bh, t, p, n, chunk, 1,
+                                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"K5 launch returned {rc}")
+
+    out = dict(
+        bh=bh, t=t, p=p, n=n, chunk=chunk, dtype="bfloat16",
+        ms=graph_ms(launch, reps=20),
+        plain_ms=event_ms(lambda: ss.ssd_scan_torch(x, dt, a, bm, cm, q=chunk), iters=3),
+        wrapper_ms=event_ms(lambda: ops.ssd_scan(*ins, chunk=chunk), iters=20),
+        library_ms=None,  # no one PyTorch call computes the SSD scan
+    )
+    # x, B, C and y in bf16, dt and a in f32, once each; per chunk of Q the
+    # lower triangle of C B^T (N) and of G dtx (P), the state term and the
+    # state update (2 Q P N each), 2 flops a multiply-add
+    q = chunk
+    n_bytes = bh * t * (2 * p + 2 * n) * 2 + bh * t * 4 + bh * 4
+    tri = q * (q + 1) / 2
+    n_ops = bh * (t // q) * (2 * tri * n + 2 * tri * p + 4 * q * p * n)
+    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    return out
+
+
+def phase_timings(giga: dict) -> dict:
+    out = {
+        "k1": {name: time_k1(ops) for name, (_, ops) in giga["fronts"].items()},
+        "k2": time_k2(giga["k2_nodes_tensor"], giga["k2_nodes"]),
+        "k3": time_k3(*K3_SERVE[:3]),
+        "k3_hd256": time_k3(*K3_HD256),
+        "k4": time_k4(),
+        "k5": time_k5(),
+    }
+    emit("timings", **out)
+    return out
 
 
 def main() -> int:
@@ -733,14 +1231,20 @@ def main() -> int:
     phase_build()
     k1_err = phase_kernels_vs_plain()
     k3_check = phase_k3_vs_plain()
+    k4_check = phase_k4_vs_plain()
+    k5_check = phase_k5_vs_plain()
     paper = phase_paper_tier(bench)
     giga = phase_giga_tier(bench["giga_burst"])
     serve = phase_serve_full_width()
+    mamba = phase_serve_mamba2_130m()
+    granite = phase_serve_granite_moe_1b()
     cold = phase_cold_start()
-    k1_t, k2_t, k3_t = phase_timings(giga)
+    times = phase_timings(giga)
 
     src = "src/repro_torch/kernels/csrc/cap_chain.cu"
-    mean = k1_t["mean"]
+    mean, k2_t, k3_t, k4_t, k5_t = (times["k1"]["mean"], times["k2"], times["k3"], times["k4"],
+                                    times["k5"])
+    csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
         {"name": "cap_chain_rates", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/cap_chain.py:102",
@@ -756,15 +1260,30 @@ def main() -> int:
          "bound_ms": k2_t["bound_ms"], "bound_by": k2_t["bound_by"],
          "library_ms": k2_t["library_ms"],
          "on_main_path": False, "n": k2_t["n"], "wrapper_ms": k2_t["wrapper_ms"]},
-        {"name": "flash_attention_bhtd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        {"name": "flash_attention_bhtd", "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:25",
          "launches": serve["k3_launches"], "max_abs_err": k3_check["serve_err"],
          "ms": k3_t["ms"], "plain_ms": k3_t["plain_ms"],
          "bound_ms": k3_t["bound_ms"], "bound_by": k3_t["bound_by"],
          "library_ms": k3_t["library_ms"], "library": "scaled_dot_product_attention",
          "on_main_path": True, "shape": [k3_t["bh"], k3_t["t"], k3_t["hd"]], "dtype": "bfloat16",
-         "wrapper_ms": k3_t["wrapper_ms"], "cold_start_launches": cold["k3_launches"]},
+         "wrapper_ms": k3_t["wrapper_ms"], "granite_moe_1b_launches": granite["k3_launches"],
+         "cold_start_launches": cold["k3_launches"], "hd256": times["k3_hd256"]},
+        {"name": "decode_attention_bhsd", "route": "cuda", "source": csrc + "decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:22",
+         "launches": serve["k4_path"]["launches"], "max_abs_err": k4_check["serve_err"],
+         "ms": k4_t["ms"], "plain_ms": k4_t["plain_ms"],
+         "bound_ms": k4_t["bound_ms"], "bound_by": k4_t["bound_by"],
+         "library_ms": k4_t["library_ms"], "library": "scaled_dot_product_attention (bool mask)",
+         "on_main_path": True, "shape": [k4_t["bh"], k4_t["s"], k4_t["hd"]], "dtype": "bfloat16",
+         "wrapper_ms": k4_t["wrapper_ms"], "served_max_abs_err": serve["k4_path"]["max_abs_err"]},
+        {"name": "ssd_scan_bhtpn", "route": "cuda", "source": csrc + "ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:22",
+         "launches": mamba["k5_path"]["launches"], "max_abs_err": k5_check["serve_err"],
+         "ms": k5_t["ms"], "plain_ms": k5_t["plain_ms"],
+         "bound_ms": k5_t["bound_ms"], "bound_by": k5_t["bound_by"], "library_ms": None,
+         "on_main_path": True, "shape": [k5_t["bh"], k5_t["t"], k5_t["p"], k5_t["n"]],
+         "chunk": k5_t["chunk"], "dtype": "bfloat16", "wrapper_ms": k5_t["wrapper_ms"]},
     ]
     # The engine keeps its per-NIC counts incrementally and never calls K2,
     # as in the JAX package; every kernel it does call must have launched.

@@ -30,8 +30,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
-# The attention kernel has no bit-identity contract: multiply-adds contract.
-FLASH_NVCC_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
+# The model kernels (attention, decoding, SSD scan) have no bit-identity
+# contract: multiply-adds contract.  ptxas reports each kernel's registers
+# and spills into the build log.
+FLASH_NVCC_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false") + ("-Xptxas", "-v")
 
 _P, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 
@@ -47,6 +49,14 @@ LIBRARIES = {
     "flash_attention": ("flash_attention.cu", FLASH_NVCC_FLAGS, {
         # q, k, v, o, bh, t, hd, dtype, scale, window, stream
         "repro_flash_attention": [_P] * 4 + [_I64] * 3 + [_I32, _F64, _I64, _P],
+    }),
+    "decode_attention": ("decode_attention.cu", FLASH_NVCC_FLAGS, {
+        # q, k, v, valid, o, ws, bh, s, hd, split, dtype, scale, stream
+        "repro_decode_attention": [_P] * 6 + [_I64] * 4 + [_I32, _F64, _P],
+    }),
+    "ssd_scan": ("ssd_scan.cu", FLASH_NVCC_FLAGS, {
+        # x, dt, a, b, c, y, bh, t, p, n, q, dtype, stream
+        "repro_ssd_scan": [_P] * 6 + [_I64] * 5 + [_I32, _P],
     }),
 }
 
@@ -69,10 +79,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def build_log_path(name: str) -> Path:
+    """The compiler's output of library ``name``'s build, beside the library."""
+    return library_path(name).with_suffix(".log")
+
+
 def build(name: str) -> Path:
     """Compile library ``name`` unless it exists; return its path.
 
-    Raises ``RuntimeError`` with the compiler's output when nvcc fails.
+    Raises ``RuntimeError`` with the compiler's output when nvcc fails; on
+    success the output goes to :func:`build_log_path`.
     """
     out = library_path(name)
     if out.exists():
@@ -89,6 +105,7 @@ def build(name: str) -> Path:
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                 f"{proc.stdout}{proc.stderr}"
             )
+        build_log_path(name).write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     finally:
         if os.path.exists(tmp):

@@ -243,13 +243,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
     return (int)cudaGetLastError();
 }
 
+// Any multiple of 16 can be an instance (hd / 16 output columns a thread);
+// these are the head dims the configs use.  At hd 256 a thread keeps 64
+// accumulator floats and the tiles take 141 KB of shared memory.
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* o, int64_t bh,
                 int64_t t, int64_t hd, float scale, int window, cudaStream_t stream) {
     switch (hd) {
+        case 16: return launch<T, 16>(q, k, v, o, bh, t, scale, window, stream);
         case 32: return launch<T, 32>(q, k, v, o, bh, t, scale, window, stream);
+        case 48: return launch<T, 48>(q, k, v, o, bh, t, scale, window, stream);
         case 64: return launch<T, 64>(q, k, v, o, bh, t, scale, window, stream);
         case 128: return launch<T, 128>(q, k, v, o, bh, t, scale, window, stream);
+        case 160: return launch<T, 160>(q, k, v, o, bh, t, scale, window, stream);
+        case 256: return launch<T, 256>(q, k, v, o, bh, t, scale, window, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -30,7 +30,7 @@ __all__ = [
     "reset_launches",
 ]
 
-SUPPORTED_HD = (32, 64, 128)
+SUPPORTED_HD = (16, 32, 48, 64, 128, 160, 256)  # the head dims the configs use
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NO_WINDOW = 2**31 - 1

@@ -1,4 +1,4 @@
-"""The port's models: decoder-only attention + MLP LMs, params as tensor trees."""
+"""The port's models: decoder-only LMs (dense, MoE, SSM, hybrid, VLM), params as tensor trees."""
 from .lm import Model, model_for
 from .params import params_from_numpy, params_to_numpy
 

@@ -7,9 +7,9 @@
   * ``decode_step(params, batch, cache)`` → (logits, cache), cache updated in place
   * ``init_cache(batch, max_len, dtype, device)`` → zeroed cache
 
-Decoder-only configs whose layers are attention + MLP are ported; the
-encoder-decoder (``audio``) family and Mamba/MoE layers raise
-``NotImplementedError`` (ROADMAP Queue 1).
+The decoder-only families (dense, MoE, SSM, hybrid, VLM) are ported; the
+encoder-decoder (``audio``) family raises ``NotImplementedError`` (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -43,7 +43,10 @@ def _lm_loss(forward, cfg):
         per_tok = softmax_xent(logits, safe, z_loss=cfg.z_loss)
         denom = torch.clamp(mask.sum(), min=1)
         ce = torch.where(mask, per_tok, torch.zeros_like(per_tok)).sum() / denom
-        return ce, {"ce": ce, "aux": aux, "tokens": denom}
+        total = ce
+        if cfg.moe is not None:
+            total = total + cfg.moe.aux_loss_weight * aux
+        return total, {"ce": ce, "aux": aux, "tokens": denom}
 
     return loss_fn
 
@@ -54,7 +57,6 @@ def model_for(cfg) -> Model:
             f"{cfg.name}: the encoder-decoder (audio) family is not ported yet; "
             "it is queued in ROADMAP.md (Queue 1)"
         )
-    impl.check_supported(cfg)
     fwd = impl.forward
 
     def init(gen: torch.Generator):

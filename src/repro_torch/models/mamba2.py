@@ -1,0 +1,246 @@
+"""Mamba2 (SSD — state-space duality) block, in plain PyTorch.
+
+Implements the chunked SSD algorithm (Dao & Gu, 2024) for train/prefill and
+the O(1) recurrent step for decode, as the JAX package does: within-chunk
+work is dense products, cross-chunk state passing a short loop over chunks.
+This module is the oracle consumer of the port's SSD-scan kernel
+(``repro_torch.kernels.ssd_scan``); as in the JAX package, the model itself
+runs ``ssd_chunked``.
+
+Shapes: x (B,T,H,P) heads×headdim, dt (B,T,H), A (H,) [negative],
+B/C (B,T,G,N) with G groups broadcast over H heads, state (B,H,P,N).
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .layers import _normal, _ones, _zeros, apply_norm, init_norm
+
+PyTree = Any
+_F32 = torch.float32
+
+
+def init_mamba(gen: torch.Generator, cfg, lead: tuple = ()) -> PyTree:
+    """Float32 master params drawn from ``gen`` at the reference's scales."""
+    s = cfg.ssm
+    d = cfg.d_model
+    h, p, g, n = s.n_heads, s.head_dim, s.n_groups, s.d_state
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, dtype=_F32, device=gen.device))
+    return {
+        "w_x": _normal(gen, (*lead, d, h * p), d**-0.5),
+        "w_z": _normal(gen, (*lead, d, h * p), d**-0.5),
+        "w_B": _normal(gen, (*lead, d, g * n), d**-0.5),
+        "w_C": _normal(gen, (*lead, d, g * n), d**-0.5),
+        "w_dt": _normal(gen, (*lead, d, h), d**-0.5),
+        "dt_bias": _zeros(gen, (*lead, h)),
+        "A_log": a_log.expand(*lead, h).clone(),
+        "D": _ones(gen, (*lead, h)),
+        "conv_x": _normal(gen, (*lead, s.conv_width, h * p), 0.2),
+        "conv_B": _normal(gen, (*lead, s.conv_width, g * n), 0.2),
+        "conv_C": _normal(gen, (*lead, s.conv_width, g * n), 0.2),
+        "out_norm": init_norm("rmsnorm", h * p, gen, lead),
+        "w_out": _normal(gen, (*lead, h * p, d), (h * p) ** -0.5),
+    }
+
+
+def causal_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv: x (B,T,Ch), kernel (W,Ch)."""
+    w = kernel.shape[0]
+    t = x.shape[1]
+    pad = F.pad(x, (0, 0, w - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(w):  # W is 4: the reference's unrolled taps, in its order
+        out = out + pad[:, i : i + t, :] * kernel[i].to(x.dtype)
+    return out
+
+
+def conv_step(x_new: torch.Tensor, conv_state: torch.Tensor, kernel: torch.Tensor):
+    """One decode step. x_new (B,Ch); conv_state (B,W-1,Ch) holds history."""
+    window = torch.cat([conv_state, x_new[:, None, :]], dim=1)  # (B,W,Ch), promoted
+    y = torch.einsum("bwc,wc->bc", window.to(x_new.dtype), kernel.to(x_new.dtype))
+    return y, window[:, 1:, :]
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """a (..., Q) -> (..., Q, Q) lower-triangular pairwise sums s[i,j]=sum(a[j+1..i])."""
+    q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]  # sum over (j, i]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
+    return torch.where(mask, diff, torch.full((), -torch.inf, dtype=diff.dtype, device=a.device))
+
+
+def ssd_chunked(
+    x: torch.Tensor,  # (B,T,H,P)
+    dt: torch.Tensor,  # (B,T,H) — post-softplus
+    A: torch.Tensor,  # (H,) negative
+    Bm: torch.Tensor,  # (B,T,G,N)
+    Cm: torch.Tensor,  # (B,T,G,N)
+    *,
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,  # (B,H,P,N)
+    intra_dtype: str = "f32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B,T,H,P), final_state (B,H,P,N)).
+
+    ``intra_dtype="bf16"`` keeps the O(T·Q) decay matrices and partial
+    products in bf16; cumulative log-decays and the inter-chunk state stay
+    float32.
+    """
+    b, t, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    nc = -(-t // chunk)
+    pad = nc * chunk - t
+    if pad:  # padded steps have dt = 0: no decay, no input
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    q = chunk
+    # reshape to chunks: (B,nc,Q,...)
+    xc = x.reshape(b, nc, q, h, p)
+    dtc = dt.reshape(b, nc, q, h).to(_F32)
+    Bc = Bm.reshape(b, nc, q, g, n)
+    Cc = Cm.reshape(b, nc, q, g, n)
+    # broadcast groups to heads
+    Bh = torch.repeat_interleave(Bc, rep, dim=3)  # (B,nc,Q,H,N)
+    Ch = torch.repeat_interleave(Cc, rep, dim=3)
+
+    a = dtc * A  # (B,nc,Q,H) log-decay per step
+    a_cum = torch.cumsum(a, dim=2)  # within-chunk cumulative
+    cdt = torch.bfloat16 if intra_dtype == "bf16" else _F32
+
+    # 1) intra-chunk (diagonal blocks): Y = (L ∘ (C Bᵀ)) (dt·x)
+    L = torch.exp(_segsum(a.permute(0, 1, 3, 2))).to(cdt)  # (B,nc,H,Q,Q)
+    scores = torch.einsum("bcqhn,bcshn->bchqs", Ch, Bh).to(cdt)
+    dtx = (xc.to(_F32) * dtc[..., None]).to(cdt)  # (B,nc,Q,H,P)
+    y_diag = torch.einsum("bchqs,bcshp->bcqhp", scores * L, dtx).to(_F32)
+
+    # 2-4) inter-chunk pass: per chunk, y_off = C · exp(a_cum) · S_in and
+    # S_out = S_c + exp(Σa) · S_in, with S_c built inside the loop
+    decay_to_end = torch.exp(a_cum[:, :, -1:, :] - a_cum).to(cdt)  # (B,nc,Q,H)
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])  # (B,nc,H)
+    decay_from_start = torch.exp(a_cum).to(cdt)  # (B,nc,Q,H)
+    Bhc = Bh.to(cdt)
+    Chc = Ch.to(cdt)
+
+    s = (init_state.to(_F32) if init_state is not None
+         else torch.zeros((b, h, p, n), dtype=_F32, device=x.device))
+    y_off = []
+    for ci in range(nc):
+        y_off.append(torch.einsum("bqhn,bqh,bhpn->bqhp", Chc[:, ci],
+                                  decay_from_start[:, ci], s.to(cdt)))
+        s_c = torch.einsum("bqhn,bqh,bqhp->bhpn", Bhc[:, ci], decay_to_end[:, ci],
+                           dtx[:, ci]).to(_F32)
+        s = s_c + chunk_decay[:, ci][..., None, None] * s
+    y_off = torch.stack(y_off, dim=1)  # (B,nc,Q,H,P) in cdt
+
+    y = (y_diag + y_off.to(_F32)).reshape(b, nc * q, h, p)[:, :t]
+    return y.to(x.dtype), s
+
+
+def ssd_step(
+    x: torch.Tensor,  # (B,H,P)
+    dt: torch.Tensor,  # (B,H)
+    A: torch.Tensor,  # (H,)
+    Bm: torch.Tensor,  # (B,G,N)
+    Cm: torch.Tensor,  # (B,G,N)
+    state: torch.Tensor,  # (B,H,P,N) f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token recurrence. Returns (y (B,H,P), new_state)."""
+    h = x.shape[1]
+    g = Bm.shape[1]
+    rep = h // g
+    Bh = torch.repeat_interleave(Bm, rep, dim=1).to(_F32)  # (B,H,N)
+    Ch = torch.repeat_interleave(Cm, rep, dim=1).to(_F32)
+    dt32 = dt.to(_F32)
+    decay = torch.exp(dt32 * A)  # (B,H)
+    dBx = torch.einsum("bh,bhn,bhp->bhpn", dt32, Bh, x.to(_F32))
+    new_state = decay[..., None, None] * state + dBx
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    return y.to(x.dtype), new_state
+
+
+# ----------------------------------------------------------------------
+# Full block (in_proj → conv → SSD → gate → out_proj)
+# ----------------------------------------------------------------------
+def apply_mamba(
+    p: PyTree,
+    x: torch.Tensor,  # (B,T,d)
+    cfg,
+    *,
+    cache: Optional[PyTree] = None,  # decode: conv+ssm state
+    chunk: int = 256,
+) -> tuple[torch.Tensor, Optional[PyTree]]:
+    """Returns (y (B,T,d), new decode cache or None).  The decode cache is a
+    new dict; the caller writes it into its buffers."""
+    s = cfg.ssm
+    h, pd, g, n = s.n_heads, s.head_dim, s.n_groups, s.d_state
+    dt_ = x.dtype
+    b, t, _ = x.shape
+    xs = x @ p["w_x"].to(dt_)  # (B,T,H*P)
+    z = x @ p["w_z"].to(dt_)
+    Bp = x @ p["w_B"].to(dt_)  # (B,T,G*N)
+    Cp = x @ p["w_C"].to(dt_)
+    dt_raw = x @ p["w_dt"].to(dt_)  # (B,T,H)
+    A = -torch.exp(p["A_log"])  # (H,)
+
+    if cache is None:
+        xs = F.silu(causal_conv(xs, p["conv_x"]))
+        Bp = F.silu(causal_conv(Bp, p["conv_B"]))
+        Cp = F.silu(causal_conv(Cp, p["conv_C"]))
+        dt_v = F.softplus(dt_raw.to(_F32) + p["dt_bias"])
+        y, _ = ssd_chunked(
+            xs.reshape(b, t, h, pd),
+            dt_v,
+            A,
+            Bp.reshape(b, t, g, n),
+            Cp.reshape(b, t, g, n),
+            chunk=chunk,
+            intra_dtype=s.intra_dtype,
+        )
+        new_cache = None
+    else:
+        if t != 1:
+            raise ValueError(f"decode path expects a single new token, got T={t}")
+        xs1, conv_x = conv_step(xs[:, 0], cache["conv_x"], p["conv_x"])
+        Bp1, conv_B = conv_step(Bp[:, 0], cache["conv_B"], p["conv_B"])
+        Cp1, conv_C = conv_step(Cp[:, 0], cache["conv_C"], p["conv_C"])
+        xs1, Bp1, Cp1 = F.silu(xs1), F.silu(Bp1), F.silu(Cp1)
+        dt_v = F.softplus(dt_raw[:, 0].to(_F32) + p["dt_bias"])
+        y1, ssm = ssd_step(
+            xs1.reshape(b, h, pd),
+            dt_v,
+            A,
+            Bp1.reshape(b, g, n),
+            Cp1.reshape(b, g, n),
+            cache["ssm"],
+        )
+        y = y1[:, None]  # (B,1,H,P)
+        xs = xs1[:, None]
+        new_cache = {"conv_x": conv_x, "conv_B": conv_B, "conv_C": conv_C, "ssm": ssm}
+
+    # D repeated per head dim: jnp's axis-less repeat is repeat_interleave
+    yd = y.reshape(b, t, h * pd) + xs.reshape(b, t, h * pd) * torch.repeat_interleave(
+        p["D"].to(dt_), pd
+    )
+    yd = yd * F.silu(z)
+    yd = apply_norm("rmsnorm", p["out_norm"], yd)
+    return yd @ p["w_out"].to(dt_), new_cache
+
+
+def init_mamba_cache(cfg, batch: int, dtype, device="cuda", lead: tuple = ()) -> PyTree:
+    """Zeroed decode cache: conv histories in ``dtype``, the SSM state in float32."""
+    s = cfg.ssm
+    h, pd, g, n = s.n_heads, s.head_dim, s.n_groups, s.d_state
+    w = s.conv_width
+    return {
+        "conv_x": torch.zeros((*lead, batch, w - 1, h * pd), dtype=dtype, device=device),
+        "conv_B": torch.zeros((*lead, batch, w - 1, g * n), dtype=dtype, device=device),
+        "conv_C": torch.zeros((*lead, batch, w - 1, g * n), dtype=dtype, device=device),
+        "ssm": torch.zeros((*lead, batch, h, pd, n), dtype=_F32, device=device),
+    }

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly for configs whose layers are attention + MLP.
+"""Decoder-only LM assembly covering dense / MoE / SSM / hybrid / VLM.
 
 The layer list (from ``ModelConfig.layer_specs``) is compiled into *stages*
 exactly as in the JAX package: an unrolled prefix of irregular layers plus a
@@ -10,14 +10,17 @@ reference's leaf for leaf, so checkpoints carry over.
 Three modes share one code path:
   * ``train``   — full-sequence forward, no cache;
   * ``prefill`` — full-sequence forward, emits per-layer caches;
-  * ``decode``  — one new token against the caches.  The port writes this
-                  step's key and value into the cache **in place** (the JAX
+  * ``decode``  — one new token against the caches (attention KV ring or
+                  full buffers, mamba conv + ssm state).  The port writes
+                  the step's key and value, and the mamba layer's new conv
+                  and ssm state, into the cache **in place** (the JAX
                   package returns an updated copy that XLA aliases to the
                   donated buffer); attention reads the old slots before the
                   write, as there.
 
-Mamba and MoE layers are not ported yet (ROADMAP Queue 1): a config that
-has one raises ``NotImplementedError``.
+MoE layers return the router's load-balancing loss, summed over layers as
+``aux``.  The port has no device mesh yet, so there are no sharding
+constraints.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ from .layers import (
     rope_freqs,
     unembed,
 )
+from .mamba2 import apply_mamba, causal_conv, init_mamba, init_mamba_cache, ssd_chunked
+from .moe import apply_moe, init_moe
 from .params import tree_map
 
 PyTree = Any
@@ -83,26 +88,22 @@ def build_stages(cfg) -> list[Stage]:
     return stages
 
 
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a layer kind the port lacks."""
-    for i, spec in enumerate(cfg.layer_specs()):
-        if spec.mixer != "attn" or spec.ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} is {spec.mixer}/{spec.ffn}; the port runs "
-                "attention + MLP layers only, Mamba and MoE layers are queued in "
-                "ROADMAP.md (Queue 1)"
-            )
-
-
 # ----------------------------------------------------------------------
 # Params
 # ----------------------------------------------------------------------
 def _init_sublayer(gen, cfg, spec, lead: tuple) -> PyTree:
     p: PyTree = {"norm1": init_norm(cfg.norm, cfg.d_model, gen, lead)}
-    p["attn"] = attn.init_attention(gen, cfg, lead)
+    if spec.mixer == "attn":
+        p["attn"] = attn.init_attention(gen, cfg, lead)
+    else:
+        p["mamba"] = init_mamba(gen, cfg, lead)
     if spec.ffn != "none":
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, gen, lead)
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, bias=cfg.mlp_bias, lead=lead)
+        if spec.ffn == "moe":
+            p["moe"] = init_moe(gen, cfg, lead)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, bias=cfg.mlp_bias,
+                                lead=lead)
     return p
 
 
@@ -114,7 +115,6 @@ def init_stage_params(gen, cfg, stage: Stage) -> PyTree:
 def init_params(gen: torch.Generator, cfg) -> PyTree:
     """Float32 master params on ``gen.device``, drawn from ``gen`` at the
     reference's init scales (the draws differ from ``jax.random``'s)."""
-    check_supported(cfg)
     params: PyTree = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model),
         "final_norm": init_norm(cfg.norm, cfg.d_model, gen),
@@ -153,13 +153,15 @@ def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda") -> PyTree:
     """Zeroed caches, one entry per stage mirroring the stage params layout."""
-    check_supported(cfg)
     int8 = cfg.kv_cache_dtype == "int8"
     caches = []
     for st in build_stages(cfg):
         lead = (st.repeat,) if st.repeat > 1 else ()
         entries = []
         for spec in st.pattern:
+            if spec.mixer != "attn":
+                entries.append(init_mamba_cache(cfg, batch, dtype, device, lead))
+                continue
             shape = (*lead, *_attn_cache_shape(cfg, spec, batch, max_len))
             if int8:
                 e = {
@@ -248,16 +250,67 @@ def _apply_attn(cfg, spec, p, x, *, positions, inv_freq, cache, pos, mode,
 
 def _apply_layer(cfg, spec, p, x, *, positions, inv_freq, cache, pos, mode,
                  cache_len=None):
+    aux = torch.zeros((), dtype=_F32, device=x.device)
     h_in = apply_norm(cfg.norm, p["norm1"], x)
-    h, new_cache = _apply_attn(
-        cfg, spec, p["attn"], h_in,
-        positions=positions, inv_freq=inv_freq, cache=cache, pos=pos,
-        mode=mode, cache_len=cache_len,
-    )
+    if spec.mixer == "attn":
+        h, new_cache = _apply_attn(
+            cfg, spec, p["attn"], h_in,
+            positions=positions, inv_freq=inv_freq, cache=cache, pos=pos,
+            mode=mode, cache_len=cache_len,
+        )
+    else:
+        h, new_cache = apply_mamba(
+            p["mamba"], h_in, cfg,
+            cache=cache if mode == "decode" else None, chunk=cfg.ssm.chunk,
+        )
+        if mode == "prefill":
+            new_cache = _mamba_prefill_cache(p["mamba"], h_in, cfg)
+        elif mode == "decode":  # the new conv + ssm state, written in place
+            for key, val in new_cache.items():
+                cache[key].copy_(val)
+            new_cache = cache
     x = x + h
     if spec.ffn != "none":
-        x = x + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], x), cfg.act)
-    return x, new_cache
+        h2 = apply_norm(cfg.norm, p["norm2"], x)
+        if spec.ffn == "moe":
+            h2, a = apply_moe(p["moe"], h2, cfg)
+            aux = aux + a
+        else:
+            h2 = apply_mlp(p["mlp"], h2, cfg.act)
+        x = x + h2
+    return x, new_cache, aux
+
+
+def _mamba_prefill_cache(p, x_normed_in, cfg):
+    """Build decode cache from a prefill pass (conv tail + final SSD state)."""
+    s = cfg.ssm
+    h, pd, g, n = s.n_heads, s.head_dim, s.n_groups, s.d_state
+    dt_ = x_normed_in.dtype
+    b, t, _ = x_normed_in.shape
+    # recompute the projections (cheap relative to carrying them through)
+    silu = torch.nn.functional.silu
+    xs = silu(causal_conv(x_normed_in @ p["w_x"].to(dt_), p["conv_x"]))
+    Bp = silu(causal_conv(x_normed_in @ p["w_B"].to(dt_), p["conv_B"]))
+    Cp = silu(causal_conv(x_normed_in @ p["w_C"].to(dt_), p["conv_C"]))
+    dt_v = torch.nn.functional.softplus(
+        (x_normed_in @ p["w_dt"].to(dt_)).to(_F32) + p["dt_bias"]
+    )
+    A = -torch.exp(p["A_log"])
+    _, final = ssd_chunked(
+        xs.reshape(b, t, h, pd), dt_v, A,
+        Bp.reshape(b, t, g, n), Cp.reshape(b, t, g, n), chunk=s.chunk,
+    )
+    w = s.conv_width
+
+    def tail(arr):  # the raw projections' last w - 1 steps, not the conv output
+        return (x_normed_in @ arr.to(dt_))[:, -(w - 1):, :].contiguous()
+
+    return {
+        "conv_x": tail(p["w_x"]),
+        "conv_B": tail(p["w_B"]),
+        "conv_C": tail(p["w_C"]),
+        "ssm": final,
+    }
 
 
 # ----------------------------------------------------------------------
@@ -266,33 +319,37 @@ def _apply_layer(cfg, spec, p, x, *, positions, inv_freq, cache, pos, mode,
 def _run_stage(cfg, stage: Stage, stage_params, x, *, positions, inv_freq,
                stage_cache, pos, mode, cache_len=None):
     def run_pattern(x, params_list, cache_list):
+        aux = torch.zeros((), dtype=_F32, device=x.device)
         new_caches = []
         for j, spec in enumerate(stage.pattern):
             c = cache_list[j] if cache_list is not None else None
-            x, nc = _apply_layer(
+            x, nc, a = _apply_layer(
                 cfg, spec, params_list[j], x,
                 positions=positions, inv_freq=inv_freq, cache=c, pos=pos,
                 mode=mode, cache_len=cache_len,
             )
             new_caches.append(nc)
-        return x, tuple(new_caches)
+            aux = aux + a
+        return x, tuple(new_caches), aux
 
     if stage.repeat == 1:
         return run_pattern(x, stage_params, stage_cache)
 
+    aux_total = torch.zeros((), dtype=_F32, device=x.device)
     per_rep = []
     for r in range(stage.repeat):
         # views of repeat r: a decode step's in-place cache writes land in
         # the stacked buffers
         params_r = tree_map(lambda a: a[r], stage_params)
         cache_r = tree_map(lambda a: a[r], stage_cache) if stage_cache is not None else None
-        x, nc = run_pattern(x, params_r, cache_r)
+        x, nc, a = run_pattern(x, params_r, cache_r)
         per_rep.append(nc)
+        aux_total = aux_total + a
     if mode == "decode":
-        return x, stage_cache
+        return x, stage_cache, aux_total
     if mode == "prefill":
-        return x, tree_map(lambda *xs: torch.stack(xs), *per_rep)
-    return x, None
+        return x, tree_map(lambda *xs: torch.stack(xs), *per_rep), aux_total
+    return x, None, aux_total
 
 
 # ----------------------------------------------------------------------
@@ -319,7 +376,6 @@ def forward(
     cache_len: Optional[int] = None,  # prefill: pad caches to this capacity
 ) -> tuple[torch.Tensor, Optional[list], torch.Tensor]:
     """Returns (logits, new_cache, aux_loss). Logits (B,T,V)."""
-    check_supported(cfg)
     x = embed_inputs(params, cfg, batch, mode)
     b, t = x.shape[0], x.shape[1]
     dev = x.device
@@ -334,19 +390,20 @@ def forward(
         if cfg.attn_every
         else None
     )
+    aux = torch.zeros((), dtype=_F32, device=dev)
     new_caches = []
     for i, st in enumerate(build_stages(cfg)):
         st_cache = cache[i] if cache is not None else None
-        x, nc = _run_stage(
+        x, nc, a = _run_stage(
             cfg, st, params["stages"][i], x,
             positions=positions, inv_freq=inv_freq,
             stage_cache=st_cache, pos=pos, mode=mode, cache_len=cache_len,
         )
         new_caches.append(nc)
+        aux = aux + a
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if cfg.tie_embeddings:
         logits = unembed(params["embed"], x)
     else:
         logits = apply_linear(params["lm_head"], x)
-    aux = torch.zeros((), dtype=_F32, device=dev)  # no MoE layers: no aux loss
     return logits, (new_caches if mode in ("prefill", "decode") else None), aux

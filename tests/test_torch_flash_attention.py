@@ -28,6 +28,10 @@ SWEEP = [
     (1, 4, 256, 64, 64),
     (1, 1, 128, 32, 32),
 ]
+# head dims beyond 32/64/128 that configs use: stablelm_12b_smoke 16,
+# gemma3_1b_smoke 48, stablelm_12b 160, gemma3_1b 256 (with a window)
+NEW_HD = [(2, 2, 256, 16, None), (1, 2, 256, 48, None), (1, 2, 128, 160, None),
+          (1, 2, 128, 256, None), (1, 1, 256, 256, 64)]
 DTYPES = {"bfloat16": (jnp.bfloat16, torch.bfloat16), "float32": (jnp.float32, torch.float32)}
 
 
@@ -52,7 +56,7 @@ def _f32(x) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("b,h,t,hd,window", SWEEP)
+@pytest.mark.parametrize("b,h,t,hd,window", SWEEP + NEW_HD)
 def test_flash_attention_matches_jax(b, h, t, hd, window, dtype):
     (jq, jk, jv), (tq, tk, tv) = _qkv((b, h, t, hd), seed=b * 100 + t + hd, dtype=dtype)
     scale = hd**-0.5
@@ -90,14 +94,67 @@ def test_wrapper_rejects_what_the_pallas_wrapper_rejects(shape, window):
         tfa.flash_attention_bhtd(q, q, q, scale=0.1, window=window)
 
 
+# hd 24 is whisper_medium_smoke's (not a multiple of 16); 40 and 512 are
+# multiples of 16 that no config uses
 @pytest.mark.parametrize(
-    "hd,dtype", [(48, torch.float32), (160, torch.bfloat16), (256, torch.bfloat16),
+    "hd,dtype", [(24, torch.float32), (40, torch.bfloat16), (512, torch.bfloat16),
                  (64, torch.float16), (128, torch.float64)],
 )
 def test_kernel_rejects_unsupported_head_dim_and_dtype(hd, dtype):
     q = torch.zeros((2, 128, hd), dtype=dtype)
     with pytest.raises(ValueError):
         tfa.check_kernel_operands(q, q, q)
+
+
+def test_kernel_takes_every_head_dim_the_configs_use():
+    """Every attention config's head dim but whisper_medium's (24, audio,
+    not ported) is a kernel instance."""
+    from repro_torch.configs.base import ARCH_IDS
+    from repro_torch.configs import get_config, get_smoke
+
+    hds = {get(a).hd for a in ARCH_IDS for get in (get_config, get_smoke)
+           if get(a).n_heads and get(a).family != "audio"}
+    assert hds <= set(tfa.SUPPORTED_HD)
+    assert hds == {16, 32, 48, 64, 128, 160, 256}
+    for hd in tfa.SUPPORTED_HD:
+        q = torch.zeros((1, 128, hd), dtype=torch.bfloat16)
+        tfa.check_kernel_operands(q, q, q)
+
+
+def test_gemma3_smoke_served_with_the_kernel_matches_jax():
+    """gemma3_1b_smoke (hd 48, sliding window, ring cache) served with
+    attn_impl="pallas" in float32: the port's greedy tokens equal the JAX
+    engine's, whose attention runs the Pallas kernel in interpret mode."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import get_smoke as jget_smoke
+    from repro.models import model_for as jmodel_for
+    from repro.serving.engine import ServeEngine as JServeEngine
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import params_from_numpy
+    from repro_torch.serving.engine import ServeEngine
+
+    over = {"attn_impl": "pallas", "compute_dtype": "float32"}
+    jcfg = dataclasses.replace(jget_smoke("gemma3_1b"), **over)
+    tcfg = dataclasses.replace(get_smoke("gemma3_1b"), **over)
+    assert tcfg.hd == 48
+    params = jmodel_for(jcfg).init(jax.random.key(8))
+    jeng, teng = JServeEngine(jcfg, max_batch=2), ServeEngine(tcfg, max_batch=2, device="cpu")
+    jeng.model = dataclasses.replace(
+        jeng.model, prefill=jax.jit(jeng.model.prefill, static_argnames=("cache_len",)),
+        decode_step=jax.jit(jeng.model.decode_step))
+    jeng.set_params(params)
+    teng.set_params(params_from_numpy(jax.tree.map(np.asarray, params), "cpu"))
+    rng = np.random.default_rng(8)
+    for n in (32, 25):  # the 25-token prompt is left-padded
+        prompt = rng.integers(0, jcfg.vocab_size, size=n)
+        jeng.submit(prompt, 5)
+        teng.submit(prompt, 5)
+    want, got = jeng.step_batch(), teng.step_batch()
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+    assert all(len(r.out_tokens) == 5 for r in got)
 
 
 def test_plain_version_is_the_oracle_and_launches_stay_zero():
@@ -144,7 +201,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("b,h,t,hd,window", SWEEP + [(4, 32, 512, 128, None), (1, 2, 256, 64, 16)])
+@pytest.mark.parametrize("b,h,t,hd,window", SWEEP + [(4, 32, 512, 128, None), (1, 2, 256, 64, 16)]
+                         + NEW_HD + [(4, 4, 1024, 256, 512), (2, 8, 512, 160, None)])
 def test_kernel_matches_plain_on_card(cuda_device, b, h, t, hd, window, dtype):
     _, tensors = _qkv((b * h, t, hd), seed=t + hd, dtype=dtype)
     q, k, v = (x.to(cuda_device) for x in tensors)
@@ -170,3 +228,4 @@ def test_kernel_on_second_card():
         want = tfa.flash_attention_torch(q, k, v, scale=128**-0.5)
         torch.testing.assert_close(got.float(), want.float(), atol=_tol("bfloat16"),
                                    rtol=_tol("bfloat16"))
+

@@ -243,8 +243,7 @@ def test_lazy_cold_start_stats_equal_jax(ckpts, writer):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("arch", ["jamba_v01_52b", "deepseek_moe_16b", "granite_moe_1b",
-                                  "mamba2_130m", "whisper_medium"])
+@pytest.mark.parametrize("arch", ["whisper_medium"])  # the audio family; the rest are ported
 def test_unported_layer_kinds_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model_for(get_smoke(arch))
