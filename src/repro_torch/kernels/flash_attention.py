@@ -14,6 +14,13 @@ a CPU tensor.  Both sides keep the Pallas wrapper's shape rule: the tile is
 bf16 and float32 with ``hd`` in ``SUPPORTED_HD``; anything else on a CUDA
 tensor raises ``ValueError``, and a failed build or launch raises: there is
 no fallback.  Each launch adds one to ``flash_attention_bhtd.launches``.
+
+The source holds two instances behind one entry point.  bf16 runs on the
+tensor cores (``mma.sync`` tiles fed by ``cp.async``; P enters the PV
+product as bf16 hi + lo terms), and ``ref.flash_attention_tiled_ref``
+repeats its arithmetic; its operands must be 16-byte aligned, as every
+allocation is.  float32 runs on the FMA units, so its inputs are never
+rounded to TF32.
 """
 from __future__ import annotations
 
