@@ -7,16 +7,18 @@ Run from the root of a checkout, with no arguments::
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together; the registers, spills and SASS
-of every K3 instance are reported), holds each against its plain PyTorch
-version on the card (K3 at every head dim the configs use and at ragged
-T < 128, its bf16 tensor-core instance also against
-``flash_attention_tiled_ref``, which shares its rounding points), and
-drives the port's two paths:
+of every K3 and K5 instance are reported), holds each against its plain
+PyTorch version on the card (K3 at every head dim the configs use and at
+ragged T < 128, its bf16 tensor-core instance also against
+``flash_attention_tiled_ref``, which shares its rounding points; K5 at every
+(P, N) it takes, a chunk under 64 rows included, also against
+``ssd_scan_tiled_ref``), and drives the port's two paths:
 
 * provisioning: ``repro_torch.sim.run_scale`` with the ``vector_torch``
   engine on ``cuda`` at the paper tier (1,000 VMs, 5 x 500 containers) and
   the production-fleet tier (100,000 VMs, 25 x 40,000 containers), checked
-  exactly against the values ``BENCH_scale.json`` records;
+  exactly against the values ``BENCH_scale.json`` records, every wide
+  front through the engine's packed K1 route (one pinned copy each way);
 * serving: ``ServeEngine`` at full width, random float32 master weights
   drawn on the card from a seed, answering 8 requests of 512 prompt tokens
   with 16 new tokens each, 4 to a batch:
@@ -35,8 +37,9 @@ drives the port's two paths:
   - and the block-checkpoint cold start (save, lazy restore, serve) on
     deepseek_7b's smoke config.
 
-It then times the kernels (K3's bf16 and float32 instances each beside
-causal SDPA).  Each phase prints one JSON line; any failure
+It then times the kernels (K1's packed engine route beside its tensor
+wrapper, K3's bf16 and float32 instances each beside causal SDPA, K5's three
+passes).  Each phase prints one JSON line; any failure
 raises and the script exits non-zero.  The last lines are the kernel table, the
 card's name and power limit as ``nvidia-smi`` reports them, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout, it
@@ -109,6 +112,11 @@ K5_SWEEP = [(256, 4, 64, 1, 32, 64), (128, 2, 32, 2, 16, 32), (512, 4, 64, 1, 64
 K5_SERVE = (4, 512, 24, 64, 1, 128, 256)
 K5_ATOL = {"bfloat16": 3e-2, "float32": 1e-3}
 K5_RTOL = 3e-2
+# against ssd_scan_tiled_ref, which shares the kernel's rounding points:
+# 1e-3 + 1e-2 |want|, at every (P, N) the kernel takes, as (T, H, chunk) at
+# B 1, one G: two chunks of 128, and two chunks of 48 (under the 64-row tile)
+K5_TILED = (1e-3, 1e-2)
+K5_PAIRS_SHAPES = [(256, 2, 128), (96, 2, 48)]
 
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_BATCH = 8, 512, 16, 4
 
@@ -318,11 +326,41 @@ def phase_build() -> list:
     ptxas = {n: ptxas_summary(_build.build_log_path(n).read_text()) for n in names
              if _build.build_log_path(n).exists()}
     k3 = k3_instances(paths["flash_attention"], ptxas["flash_attention"])
+    k5 = k5_instances(paths["ssd_scan"], ptxas["ssd_scan"])
     emit("build", seconds=time.perf_counter() - t0, compiled=fresh,
          libraries={n: str(paths[n].relative_to(ROOT)) for n in names},
          nvcc_flags={n: " ".join(_build.LIBRARIES[n][1]) for n in names}, ptxas=ptxas,
-         k3_instances=k3)
-    return k3
+         k3_instances=k3, k5_instances=k5)
+    return {"k3": k3, "k5": k5}
+
+
+def sass_counts(lib_path: Path, classify) -> dict | None:
+    """HMMA, LDGSTS and LDSM instruction counts (``cuobjdump -sass``) of each
+    kernel of a library that ``classify`` maps to a key; None without
+    cuobjdump."""
+    import os
+    import re
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return None
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            key = classify(m.group(1))
+            if key:
+                counts[key] = dict(hmma=0, ldgsts=0, ldsm=0)
+            continue
+        if key:
+            for op in ("HMMA", "LDGSTS", "LDSM"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[key][op.lower()] += 1
+    return counts
 
 
 def k3_instance(kernel_name: str) -> tuple[str, int] | None:
@@ -341,10 +379,6 @@ def k3_instances(lib_path: Path, ptxas: list) -> list:
     instruction counts (``cuobjdump -sass``) of every K3 instance.  The bf16
     instances must issue HMMA and LDGSTS, the float32 ones no HMMA, and the
     bf16 instances at hd 64 and 128 must not spill."""
-    import os
-    import re
-    import shutil
-
     from repro_torch.kernels.flash_attention import SUPPORTED_HD
 
     rows = {}
@@ -354,23 +388,10 @@ def k3_instances(lib_path: Path, ptxas: list) -> list:
             rows[key] = {"dtype": key[0], "hd": key[1], "registers": r.get("registers"),
                          "spill_stores": r.get("spill_stores"), "spill_loads": r.get("spill_loads")}
     check(len(rows) == 2 * len(SUPPORTED_HD), f"K3 instances in the ptxas log: {sorted(rows)}")
-    cuobjdump = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if os.path.exists(cuobjdump):
-        sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
-                              check=True, timeout=120).stdout
-        key = None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                key = k3_instance(m.group(1))
-                if key:
-                    rows[key].update(hmma=0, ldgsts=0, ldsm=0)
-                continue
-            if key:
-                for op in ("HMMA", "LDGSTS", "LDSM"):
-                    if re.search(rf"\b{op}\b", line):
-                        rows[key][op.lower()] += 1
+    counts = sass_counts(lib_path, k3_instance)
+    if counts is not None:
+        for key, c in counts.items():
+            rows[key].update(c)
         for (dt, hd), r in rows.items():
             if dt == "bfloat16":
                 check(r.get("hmma", 0) > 0 and r.get("ldgsts", 0) > 0, f"K3 bf16 hd {hd} SASS: {r}")
@@ -380,6 +401,48 @@ def k3_instances(lib_path: Path, ptxas: list) -> list:
         r = rows[("bfloat16", hd)]
         check(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"K3 bf16 hd {hd} spills: {r}")
     return sorted(rows.values(), key=lambda r: (r["dtype"], r["hd"]))
+
+
+def k5_instance(kernel_name: str) -> tuple[str, str, int, int] | None:
+    """(dtype, pass, P, N) of a K5 pass-1 or pass-3 kernel from its demangled
+    or mangled name."""
+    import re
+
+    m = re.search(r"ssd_chunk_(state|scan)_(mma|simt)(?:<|ILi)(\d+)(?:, |ELi)(\d+)", kernel_name)
+    if not m:
+        return None
+    return ("bfloat16" if m.group(2) == "mma" else "float32", m.group(1), int(m.group(3)),
+            int(m.group(4)))
+
+
+def k5_instances(lib_path: Path, ptxas: list) -> list:
+    """Registers, spills and SASS counts of every K5 pass-1 and pass-3
+    instance.  The bf16 instances must issue HMMA and LDGSTS, the float32
+    ones no HMMA, and the bf16 instances at P 64, N 128 must not spill."""
+    from repro_torch.kernels.ssd_scan import SUPPORTED_N, SUPPORTED_P
+
+    rows = {}
+    for r in ptxas:
+        key = k5_instance(r["kernel"])
+        if key:
+            rows[key] = {"dtype": key[0], "pass": key[1], "p": key[2], "n": key[3],
+                         "registers": r.get("registers"), "spill_stores": r.get("spill_stores"),
+                         "spill_loads": r.get("spill_loads")}
+    want = 2 * 2 * len(SUPPORTED_P) * len(SUPPORTED_N)
+    check(len(rows) == want, f"K5 instances in the ptxas log: {len(rows)} of {want}")
+    counts = sass_counts(lib_path, k5_instance)
+    if counts is not None:
+        for key, c in counts.items():
+            rows[key].update(c)
+        for key, r in rows.items():
+            if key[0] == "bfloat16":
+                check(r.get("hmma", 0) > 0 and r.get("ldgsts", 0) > 0, f"K5 bf16 {key} SASS: {r}")
+            else:
+                check(r.get("hmma", 1) == 0, f"K5 f32 {key} SASS has HMMA: {r}")
+    for stage in ("state", "scan"):
+        r = rows[("bfloat16", stage, 64, 128)]
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"K5 bf16 {stage} P 64 N 128 spills: {r}")
+    return sorted(rows.values(), key=lambda r: (r["dtype"], r["pass"], r["p"], r["n"]))
 
 
 def phase_kernels_vs_plain() -> float:
@@ -473,10 +536,11 @@ def phase_giga_tier(bench: dict) -> dict:
             # the mean width, for the timing phase
             w = int(fids.size)
             best = fronts.get("mean")
+            # (copies: the operands are views that the next front overwrites)
             if w > fronts.get("widest", (0,))[0]:
-                fronts["widest"] = (w, sim._front_operands(fids, src, dst))
+                fronts["widest"] = (w, tuple(a.copy() for a in sim._front_operands(fids, src, dst)))
             if best is None or abs(w - GIGA_MEAN_WIDTH) < abs(best[0] - GIGA_MEAN_WIDTH):
-                fronts["mean"] = (w, sim._front_operands(fids, src, dst))
+                fronts["mean"] = (w, tuple(a.copy() for a in sim._front_operands(fids, src, dst)))
             return rate(fids, src, dst)
 
         sim._front_rates = recording
@@ -500,16 +564,24 @@ def phase_giga_tier(bench: dict) -> dict:
     check(np.array_equal(got.cpu().numpy(), np.bincount(sim._fsrc[:n_flows], minlength=n_nodes)),
           "K2 vs numpy bincount on the giga plan")
     del sim, engines[:]
-    # The same tier on the host-only numpy engine, on the same machine: the
-    # card tier's cost or gain end to end, and one more exact comparison.
-    vec, vec_wall, _, _ = run_tier(giga_burst_config(engine="vector"))
-    check(vec.per_function == res.per_function, "giga tier vs numpy vector engine")
+    # The same tier on the host-only numpy engine, on the same machine, in
+    # turns (card, numpy, numpy, card): the card tier's cost or gain end to
+    # end, and more exact comparisons.
+    vecs = [run_tier(giga_burst_config(engine="vector"))[0] for _ in range(2)]
+    again = run_tier(giga_burst_config())[0]
+    for other in vecs + [again]:
+        check(other.per_function == res.per_function, "giga tier vs numpy vector engine, or a rerun")
+    vec = vecs[0]
+    engine_walls = [res.wall_s, again.wall_s]
+    vector_walls = [v.wall_s for v in vecs]
     out = dict(provision_makespan=res.provision_makespan, wall_s=wall, engine_wall_s=res.wall_s,
                build_s=res.build_s, events=res.events, events_per_s=res.events_per_s,
                n_flows=res.n_flows, fronts_torch=ds["fronts_torch"], flows_torch=ds["flows_torch"],
                fronts_scalar=ds["fronts_scalar"], k1_launches=k1, k2_launches=k2,
                mean_front=fronts["mean"][0], widest_front=fronts["widest"][0], k2_nodes=n_nodes,
-               vector_wall_s=vec_wall, vector_engine_wall_s=vec.wall_s,
+               vector_engine_wall_s=vec.wall_s, engine_walls_abba_s=engine_walls,
+               vector_engine_walls_abba_s=vector_walls,
+               engine_minus_vector_engine_wall_s=(sum(engine_walls) - sum(vector_walls)) / 2,
                vector_build_s=vec.build_s, vector_events_per_s=vec.events_per_s)
     emit("giga_tier", **out)
     return out | {"fronts": fronts, "k2_nodes_tensor": nodes}
@@ -532,19 +604,32 @@ def time_k1(ops) -> dict:
                                        torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"K1 launch returned {rc}")
 
-    def engine_path():
+    def wrapper_path():  # the tensor route: six copies, the wrapper, a copy back
         put = [torch.from_numpy(a).to("cuda") for a in ops]
         return cc.cap_chain_rates(*put, **CAPS).cpu().numpy()
+
+    # the engine's route: the front laid out once in the packed pinned buffer
+    # (the engine gathers into it), then one call: copy in, K1, copy back
+    staging = cc.CapChainStaging("cuda")
+    for view, a in zip(staging.segments(n), ops):
+        view[...] = a
+
+    def front_path():
+        return staging.rates(**CAPS)
 
     out = dict(
         n=n,
         ms=graph_ms(launch),
         plain_ms=graph_ms(lambda: cc.cap_chain_rates_torch(*dev, **CAPS)),
-        wrapper_ms=host_ms(engine_path),
+        front_ms=host_ms(front_path),
+        wrapper_ms=host_ms(wrapper_path),
         numpy_ms=host_ms(lambda: numpy_front_rates(ops, CAPS)),
     )
-    check(bit_mismatch(torch.from_numpy(engine_path()), torch.from_numpy(numpy_front_rates(ops, CAPS)))[0] == 0,
-          "K1 on a recorded giga front vs numpy")
+    want = torch.from_numpy(numpy_front_rates(ops, CAPS))
+    check(bit_mismatch(torch.from_numpy(wrapper_path()), want)[0] == 0,
+          "K1's tensor route on a recorded giga front vs numpy")
+    check(bit_mismatch(torch.from_numpy(front_path()), want)[0] == 0,
+          "K1's packed route on a recorded giga front vs numpy")
     # 49 bytes a flow (two int64 counts, three doubles, one byte of blk read;
     # one double written); 12 fp64 operations a flow (two conversions,
     # three divisions, one product, six minima)
@@ -735,13 +820,16 @@ def phase_k5_vs_plain() -> dict:
 
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.ref import ssd_scan_tiled_ref
     from repro_torch.models.mamba2 import ssd_chunked
 
-    worst, per_case = {}, []
+    worst, worst_tiled, per_case = {}, 0.0, []
     cases = [((2, *shape), dt) for dt in ("bfloat16", "float32") for shape in K5_SWEEP]
+    cases += [((1, t, h, p, 1, n, chunk), dt) for dt in ("bfloat16", "float32")
+              for p in ss.SUPPORTED_P for n in ss.SUPPORTED_N for t, h, chunk in K5_PAIRS_SHAPES]
     cases += [(K5_SERVE, dt) for dt in ("bfloat16", "float32")]
     for (b, t, h, p, g, n, chunk), dt in cases:
-        x, dtv, a, bm, cm = k5_operands(b, t, h, p, g, n, dt, seed=t + h)
+        x, dtv, a, bm, cm = k5_operands(b, t, h, p, g, n, dt, seed=t + h + n)
         got = ops.ssd_scan(x, dtv, a, bm, cm, chunk=chunk)
         torch.cuda.synchronize()
         flat = ssd_flat(x, dtv, a, bm, cm)
@@ -751,19 +839,24 @@ def phase_k5_vs_plain() -> dict:
         check(bool(torch.isfinite(got).all()), f"K5 non-finite at {name} {dt}")
         ok, err = within(got, want, K5_ATOL[dt], K5_RTOL)
         check(ok, f"K5 vs plain at {name} {dt}: max err {err}")
+        tiled = ssd_scan_tiled_ref(*flat, q=chunk).reshape(b, h, t, p).permute(0, 2, 1, 3)
+        ok, err_tiled = within(got, tiled, *K5_TILED)
+        check(ok, f"K5 vs the tiled version at {name} {dt}: max err {err_tiled}")
         worst[dt] = max(worst.get(dt, 0.0), err)
+        worst_tiled = max(worst_tiled, err_tiled)
         per_case.append({"b": b, "t": t, "h": h, "p": p, "g": g, "n": n, "chunk": chunk,
-                         "dtype": dt, "max_abs_err": err, "max_abs_y": float(want.float().abs().max())})
+                         "dtype": dt, "max_abs_err": err, "max_abs_err_vs_tiled": err_tiled,
+                         "max_abs_y": float(want.float().abs().max())})
     # the model's chunked SSD, as tests/test_kernels.py holds the Pallas kernel to it
     x, dtv, a, bm, cm = k5_operands(1, 128, 2, 32, 1, 16, "float32", seed=0)
     y_model, _ = ssd_chunked(x, dtv, a, bm, cm, chunk=32)
     ok, err_model = within(ops.ssd_scan(x, dtv, a, bm, cm, chunk=32), y_model, 1e-3, 1e-3)
     check(ok, f"K5 vs ssd_chunked: max err {err_model}")
-    emit("k5_vs_plain", atol=K5_ATOL, rtol=K5_RTOL, worst=worst, cases=per_case,
-         vs_ssd_chunked_max_abs_err=err_model)
+    emit("k5_vs_plain", atol=K5_ATOL, rtol=K5_RTOL, tiled_bound=K5_TILED, worst=worst,
+         worst_vs_tiled=worst_tiled, cases=per_case, vs_ssd_chunked_max_abs_err=err_model)
     serve = [c for c in per_case if (c["b"], c["t"], c["h"], c["p"], c["g"], c["n"], c["chunk"])
              == K5_SERVE and c["dtype"] == "bfloat16"]
-    return {"worst": worst, "serve_err": serve[0]["max_abs_err"]}
+    return {"worst": worst, "worst_vs_tiled": worst_tiled, "serve_err": serve[0]["max_abs_err"]}
 
 
 def serve_prompts(cfg, n: int, length: int, seed: int) -> list:
@@ -1261,8 +1354,9 @@ def time_k4() -> dict:
     return out
 
 
-def time_k5() -> dict:
-    """K5 at mamba2_130m's full-width prefill shape, in bf16 as the model runs it."""
+def time_k5(dtype: str = "bfloat16") -> dict:
+    """K5's three passes at mamba2_130m's full-width prefill shape: the bf16
+    tensor-core instance, as the model runs it, or the float32 SIMT one."""
     import torch
 
     from repro_torch.kernels import _build
@@ -1270,34 +1364,60 @@ def time_k5() -> dict:
     from repro_torch.kernels import ssd_scan as ss
 
     b, t, h, p, g, n, chunk = K5_SERVE
-    ins = k5_operands(b, t, h, p, g, n, "bfloat16", seed=5)
+    ins = k5_operands(b, t, h, p, g, n, dtype, seed=5)
     x, dt, a, bm, cm = ssd_flat(*ins)
     dt, a = dt.contiguous(), a.contiguous()
     y = torch.empty_like(x)
     lib = _build.library("ssd_scan")
     bh = b * h
+    ws = torch.empty(ss.workspace_floats(bh, t, p, n, chunk), dtype=torch.float32, device="cuda")
 
-    def launch():
+    def launch():  # the three passes
         rc = lib.repro_ssd_scan(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
-                                cm.data_ptr(), y.data_ptr(), bh, t, p, n, chunk, 1,
+                                cm.data_ptr(), y.data_ptr(), ws.data_ptr(), bh, t, p, n, chunk,
+                                {"float32": 0, "bfloat16": 1}[dtype],
                                 torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"K5 launch returned {rc}")
 
     out = dict(
-        bh=bh, t=t, p=p, n=n, chunk=chunk, dtype="bfloat16",
+        bh=bh, t=t, p=p, n=n, chunk=chunk, dtype=dtype,
         ms=graph_ms(launch, reps=20),
         plain_ms=event_ms(lambda: ss.ssd_scan_torch(x, dt, a, bm, cm, q=chunk), iters=3),
         wrapper_ms=event_ms(lambda: ops.ssd_scan(*ins, chunk=chunk), iters=20),
         library_ms=None,  # no one PyTorch call computes the SSD scan
+        passes_ms=pass_times(launch),
     )
-    # x, B, C and y in bf16, dt and a in f32, once each; per chunk of Q the
-    # lower triangle of C B^T (N) and of G dtx (P), the state term and the
-    # state update (2 Q P N each), 2 flops a multiply-add
+    # x, B, C and y in their dtype, dt and a in f32, once each; per chunk of Q
+    # the lower triangle of C B^T (N) and of G dtx (P), the state term and the
+    # state update (2 Q P N each), 2 flops a multiply-add, at the bf16 tensor
+    # rate or the f32 FMA rate
     q = chunk
-    n_bytes = bh * t * (2 * p + 2 * n) * 2 + bh * t * 4 + bh * 4
+    n_bytes = bh * t * (2 * p + 2 * n) * x.element_size() + bh * t * 4 + bh * 4
     tri = q * (q + 1) / 2
     n_ops = bh * (t // q) * (2 * tri * n + 2 * tri * p + 4 * q * p * n)
-    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        n_bytes, n_ops, BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S)
+    return out
+
+
+def pass_times(launch, reps: int = 10) -> dict:
+    """Device ms a call of each of K5's three passes, from a ``torch.profiler``
+    trace of ``reps`` calls of ``launch``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((k for k in ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
+                         if k in e.name), e.name[:60])
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
     return out
 
 
@@ -1311,6 +1431,7 @@ def phase_timings(giga: dict) -> dict:
         "k3_f32_hd256": time_k3(*K3_HD256, dtype="float32"),
         "k4": time_k4(),
         "k5": time_k5(),
+        "k5_f32": time_k5("float32"),
     }
     emit("timings", **out)
     return out
@@ -1337,7 +1458,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smi, name = phase_device()
-    k3_build = phase_build()
+    build = phase_build()
     k1_err = phase_kernels_vs_plain()
     k3_check = phase_k3_vs_plain()
     k4_check = phase_k4_vs_plain()
@@ -1360,7 +1481,8 @@ def main() -> int:
          "launches": giga["k1_launches"], "max_abs_err": k1_err,
          "ms": mean["ms"], "plain_ms": mean["plain_ms"],
          "bound_ms": mean["bound_ms"], "bound_by": mean["bound_by"], "library_ms": None,
-         "on_main_path": True, "n": mean["n"], "wrapper_ms": mean["wrapper_ms"],
+         "on_main_path": True, "n": mean["n"], "front_ms": mean["front_ms"],
+         "wrapper_ms": mean["wrapper_ms"], "widest": times["k1"]["widest"],
          "numpy_ms": mean["numpy_ms"], "paper_tier_launches": paper["k1_launches"]},
         {"name": "nic_flow_counts", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/cap_chain.py:137",
@@ -1378,7 +1500,7 @@ def main() -> int:
          "on_main_path": True, "shape": [k3_t["bh"], k3_t["t"], k3_t["hd"]], "dtype": "bfloat16",
          "wrapper_ms": k3_t["wrapper_ms"], "granite_moe_1b_launches": granite["k3_launches"],
          "cold_start_launches": cold["k3_launches"], "hd256": times["k3_hd256"],
-         "f32": times["k3_f32"], "f32_hd256": times["k3_f32_hd256"], "instances": k3_build},
+         "f32": times["k3_f32"], "f32_hd256": times["k3_f32_hd256"], "instances": build["k3"]},
         {"name": "decode_attention_bhsd", "route": "cuda", "source": csrc + "decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:22",
          "launches": serve["launches"]["decode_attention_bhsd"], "max_abs_err": k4_check["serve_err"],
@@ -1395,7 +1517,10 @@ def main() -> int:
          "bound_ms": k5_t["bound_ms"], "bound_by": k5_t["bound_by"], "library_ms": None,
          "on_main_path": False, "served_operand_launches": mamba["k5_path"]["launches"],
          "shape": [k5_t["bh"], k5_t["t"], k5_t["p"], k5_t["n"]],
-         "chunk": k5_t["chunk"], "dtype": "bfloat16", "wrapper_ms": k5_t["wrapper_ms"]},
+         "chunk": k5_t["chunk"], "dtype": "bfloat16", "wrapper_ms": k5_t["wrapper_ms"],
+         "served_max_rel_err": mamba["k5_path"]["max_rel_err_vs_model"],
+         "worst_vs_tiled": k5_check["worst_vs_tiled"], "f32": times["k5_f32"],
+         "instances": build["k5"]},
     ]
     # The engine keeps its per-NIC counts incrementally and never calls K2,
     # as in the JAX package; no model calls K4 or K5 (ops.py), which run on

@@ -43,6 +43,8 @@ LIBRARIES = {
     "cap_chain": ("cap_chain.cu", NVCC_FLAGS, {
         # n_out, n_in, out_cap, qps, par_rate, blk, rate, n, 4 caps, stream
         "repro_cap_chain_rates": [_P] * 7 + [_I64] + [_F64] * 4 + [_P],
+        # host_in, dev_in, dev_out, host_out, n, 4 caps, stream
+        "repro_cap_chain_front": [_P] * 4 + [_I64] + [_F64] * 4 + [_P],
         # nodes, n, counts, stream
         "repro_nic_flow_counts": [_P, _I64, _P, _P],
     }),
@@ -55,8 +57,8 @@ LIBRARIES = {
         "repro_decode_attention": [_P] * 6 + [_I64] * 4 + [_I32, _F64, _P],
     }),
     "ssd_scan": ("ssd_scan.cu", FLASH_NVCC_FLAGS, {
-        # x, dt, a, b, c, y, bh, t, p, n, q, dtype, stream
-        "repro_ssd_scan": [_P] * 6 + [_I64] * 5 + [_I32, _P],
+        # x, dt, a, b, c, y, ws, bh, t, p, n, q, dtype, stream
+        "repro_ssd_scan": [_P] * 7 + [_I64] * 5 + [_I32, _P],
     }),
 }
 

@@ -24,18 +24,28 @@ bit-identical.  The plain version divides a float64 tensor by a tensor,
 never a Python float by a tensor: ``float / tensor`` in PyTorch computes
 ``reciprocal(t) * x``, which differs from IEEE division in the last bit.
 
+The engine's route is :class:`CapChainStaging`: one front's operands packed
+into one host buffer (pinned on ``cuda``), rated by one C call that copies
+the front in, launches K1, copies the rates back and synchronises; on
+``cpu`` the plain ``cap_chain_front_torch`` reads the same packed buffer.
+
 Each wrapper counts its kernel launches in a plain integer attribute
-(``cap_chain_rates.launches``, ``nic_flow_counts.launches``); the plain
-versions count nothing.  A CUDA tensor always goes to the kernel: a failed
-build or launch raises, it never falls back.
+(``cap_chain_rates.launches``, ``nic_flow_counts.launches``; the staging
+route adds to ``cap_chain_rates.launches``); the plain versions count
+nothing.  A CUDA tensor always goes to the kernel: a failed build or launch
+raises, it never falls back.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = [
+    "CapChainStaging",
+    "cap_chain_front_torch",
     "cap_chain_rates",
     "cap_chain_rates_torch",
+    "packed_front_bytes",
     "nic_flow_counts",
     "nic_flow_counts_torch",
     "reset_launches",
@@ -203,6 +213,101 @@ def nic_flow_counts(nodes: torch.Tensor, n_nodes: int) -> torch.Tensor:
         raise RuntimeError(f"nic_flow_counts kernel launch failed: CUDA error {rc}")
     nic_flow_counts.launches += 1
     return counts
+
+
+# ----------------------------------------------------------------------
+# the engine's route: one packed front, one copy each way
+# ----------------------------------------------------------------------
+def packed_front_bytes(n: int) -> int:
+    """Bytes of a packed front of ``n`` flows: ``n_out``, ``n_in`` (int64),
+    ``out_cap``, ``qps``, ``par_rate`` (float64) as five segments of ``8 n``
+    bytes, then ``blk`` as ``n`` bytes, padded to a multiple of 8."""
+    return 40 * n + -(-n // 8) * 8
+
+
+def _packed_segments(raw: np.ndarray, n: int) -> tuple[np.ndarray, ...]:
+    """Views ``(n_out, n_in, out_cap, qps, par_rate, blk)`` of a packed uint8
+    front of ``n`` flows (the layout ``repro_cap_chain_front`` reads)."""
+    seg = [raw[8 * n * k:8 * n * (k + 1)] for k in range(5)]
+    return (seg[0].view(np.int64), seg[1].view(np.int64), seg[2].view(np.float64),
+            seg[3].view(np.float64), seg[4].view(np.float64), raw[40 * n:41 * n].view(np.bool_))
+
+
+def cap_chain_front_torch(packed: torch.Tensor, n: int, **caps: float) -> torch.Tensor:
+    """The plain version of the packed route: :func:`cap_chain_rates_torch`
+    on the six segments of a packed uint8 front of ``n`` flows on the CPU."""
+    segs = _packed_segments(packed.numpy(), n)
+    return cap_chain_rates_torch(*(torch.from_numpy(a) for a in segs), **caps)
+
+
+class CapChainStaging:
+    """One engine's buffers for the packed route of K1.
+
+    A host buffer of packed fronts (:func:`packed_front_bytes`), pinned on
+    ``cuda`` and plain on ``cpu``; on ``cuda`` also a device input buffer, a
+    device output buffer and a pinned output buffer.  Each grows to the next
+    power of two of flows that a front needs and is never shrunk.  The
+    engine gathers a front into the numpy views :meth:`segments` returns,
+    then :meth:`rates` rates it: one C call on ``cuda`` (copy in, K1, copy
+    back, synchronise), :func:`cap_chain_front_torch` on ``cpu``.  The views
+    are valid until the next :meth:`segments`; the rates belong to the
+    caller.
+    """
+
+    def __init__(self, device: str | torch.device):
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"CapChainStaging runs on cpu or cuda, not {dev}")
+        self.device = dev
+        self.capacity = 0  # flows the buffers hold
+        self._n = 0
+
+    def _grow(self, n: int) -> None:
+        cap = 1 << max(n - 1, 255).bit_length()
+        pin = self.device.type == "cuda"
+        self._host_in = torch.empty(packed_front_bytes(cap), dtype=torch.uint8, pin_memory=pin)
+        self._host_raw = self._host_in.numpy()
+        if pin:
+            self._dev_in = torch.empty(packed_front_bytes(cap), dtype=torch.uint8, device=self.device)
+            self._dev_out = torch.empty(cap, dtype=_F64, device=self.device)
+            self._host_out = torch.empty(cap, dtype=_F64, pin_memory=True)
+            self._host_out_np = self._host_out.numpy()
+        self.capacity = cap
+
+    def segments(self, n: int) -> tuple[np.ndarray, ...]:
+        """Views ``(n_out, n_in, out_cap, qps, par_rate, blk)`` of a front of
+        ``n`` flows in the packed host buffer, to be filled in place."""
+        if n > self.capacity or not self.capacity:
+            self._grow(n)
+        self._n = n
+        return _packed_segments(self._host_raw, n)
+
+    def rates(self, *, per_stream_cap: float, in_cap: float, decompress_rate: float,
+              block_size: float) -> np.ndarray:
+        """Rates of the front last laid out by :meth:`segments`, as a float64
+        array the caller owns, bit-identical to the engine's numpy path."""
+        n = self._n
+        caps = dict(per_stream_cap=per_stream_cap, in_cap=in_cap,
+                    decompress_rate=decompress_rate, block_size=block_size)
+        if n == 0:
+            return np.empty(0, dtype=np.float64)
+        if self.device.type == "cpu":
+            return cap_chain_front_torch(self._host_in, n, **caps).numpy()
+        from ._build import library
+
+        with torch.cuda.device(self.device):
+            rc = library("cap_chain").repro_cap_chain_front(
+                self._host_in.data_ptr(), self._dev_in.data_ptr(), self._dev_out.data_ptr(),
+                self._host_out.data_ptr(), n, float(per_stream_cap), float(in_cap),
+                float(decompress_rate), float(block_size),
+                torch.cuda.current_stream(self.device).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"cap_chain front failed: CUDA error {rc}")
+        cap_chain_rates.launches += 1
+        return self._host_out_np[:n].copy()
 
 
 def reset_launches() -> None:

@@ -22,6 +22,14 @@
 // grid-stride loop and a masked ragged tail is all the work needs; the TPU
 // version's padding to 256-lane blocks is gone.
 //
+// The engine's route is `repro_cap_chain_front`: the front's operands arrive
+// packed in one pinned host buffer (six segments of n values: n_out, n_in as
+// int64, out_cap, qps, par_rate as double, blk as bytes, each at a multiple
+// of 8 bytes), so one ctypes call makes one host-to-device copy, the launch,
+// one device-to-host copy of the rates into pinned memory and the
+// synchronisation, where six pageable copies, a few tensor allocations and a
+// blocking copy back took ~0.2 ms a front.
+//
 // K2 `nic_flow_counts_kernel` replaces the Pallas kernel `_count_kernel`
 // (same file, reached through `_count_call` and `nic_flow_counts`): the
 // per-NIC active-flow count, a bincount.  Integer atomics commute, so the
@@ -91,6 +99,36 @@ extern "C" int repro_cap_chain_rates(
         n_out, n_in, out_cap, qps, par_rate, blk, rate, n, per_stream_cap,
         in_cap, decompress_rate, block_size);
     return (int)cudaGetLastError();
+}
+
+// Bytes of one packed front of n flows: five 8-byte segments, then blk.
+static int64_t packed_front_bytes(int64_t n) { return 40 * n + ((n + 7) / 8) * 8; }
+
+// One front, packed: host_in (pinned, packed_front_bytes(n) bytes as laid out
+// above) -> dev_in, the kernel into dev_out (n doubles), dev_out -> host_out
+// (pinned), then a synchronisation of `stream`, so host_out holds the rates
+// on return.  Returns the first CUDA error, 0 on success.
+extern "C" int repro_cap_chain_front(
+    const void* host_in, void* dev_in, double* dev_out, double* host_out, int64_t n,
+    double per_stream_cap, double in_cap, double decompress_rate, double block_size,
+    cudaStream_t stream) {
+    if (n == 0) return 0;
+    if (n < 0) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaMemcpyAsync(dev_in, host_in, packed_front_bytes(n),
+                                      cudaMemcpyHostToDevice, stream);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned char* base = static_cast<const unsigned char*>(dev_in);
+    cap_chain_rates_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+        reinterpret_cast<const int64_t*>(base), reinterpret_cast<const int64_t*>(base + 8 * n),
+        reinterpret_cast<const double*>(base + 16 * n),
+        reinterpret_cast<const double*>(base + 24 * n),
+        reinterpret_cast<const double*>(base + 32 * n), base + 40 * n, dev_out, n,
+        per_stream_cap, in_cap, decompress_rate, block_size);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = cudaMemcpyAsync(host_out, dev_out, sizeof(double) * n, cudaMemcpyDeviceToHost, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaStreamSynchronize(stream);
 }
 
 extern "C" int repro_nic_flow_counts(const int64_t* nodes, int64_t n,

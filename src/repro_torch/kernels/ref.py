@@ -4,11 +4,13 @@ Each oracle is the mathematically direct formulation (full attention
 matrices, the per-step SSM recurrence) with float32 accumulation, so the
 tiled kernels are held against code that shares nothing with them.
 
-``flash_attention_tiled_ref`` is the exception: it repeats the arithmetic
-of K3's bf16 tensor-core instance (its tiles, its live-tile walk, its online
-softmax and its bf16 hi + lo terms of P), so that the kernel can be held to
-it far more tightly than to the oracle.  Only tests and ``chip_smoke.py`` call
-it.
+``flash_attention_tiled_ref`` and ``ssd_scan_tiled_ref`` are the exceptions:
+they repeat the arithmetic of K3's bf16 tensor-core instance (its tiles, its
+live-tile walk, its online softmax and its bf16 hi + lo terms of P) and of
+K5's three passes (chunk states, state passing, 64-row tiles of the chunk
+scan, bf16 hi + lo terms of every float32 operand), so that the kernels can
+be held to them far more tightly than to the oracles.  Only tests and
+``chip_smoke.py`` call them.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 NEG_INF = -2.0e38
 LOG2E = math.log2(math.e)
 FLASH_BQ = 64  # query rows of one K3 block
+SSD_TILE = 64  # rows of a query or key tile of K5's chunk scan
 
 
 def flash_tile_plan(hd: int) -> tuple[int, int]:
@@ -146,3 +149,77 @@ def ssd_scan_ref(
         h = decay[..., None] * h + torch.einsum("bp,bn->bpn", xt * dtt, b[:, i].to(f32))
         ys.append(torch.einsum("bpn,bn->bp", h, c[:, i].to(f32)))
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_scan_tiled_ref(
+    x: torch.Tensor,  # (BH, T, P)
+    dt: torch.Tensor,  # (BH, T, 1)
+    a: torch.Tensor,  # (BH, 1)
+    b: torch.Tensor,  # (BH, T, N)
+    c: torch.Tensor,  # (BH, T, N)
+    *,
+    q: int = 128,
+) -> torch.Tensor:
+    """K5's three passes in plain PyTorch, chunk ``min(q, T)``:
+
+    1. per chunk, ``a_cum = cumsum(dt A)`` and the chunk state
+       ``dS = (w x)^T B`` with ``w = dt exp(a_cum[-1] - a_cum)``;
+    2. the state entering each chunk, ``S_0 = 0``,
+       ``S_{c+1} = exp(a_cum_c[-1]) S_c + dS_c``;
+    3. per 64-row tile i of a chunk, ``y_i = exp(a_cum_i) (C_i S_in^T)
+       + sum_{j <= i} G_ij x_j`` with ``G_ij = (C_i B_j^T) o L_ij o dt_j``
+       and ``L_ij = exp(a_cum_i - a_cum_j)`` on and below the diagonal.
+
+    Every product takes x, B or C as given and a float32 operand (``w x``,
+    ``S_in``, ``G``); for bf16 inputs that operand enters as two terms in
+    the input dtype, ``hi`` rounded and ``lo`` the rest rounded, each
+    multiplied with float32 accumulation, as the tensor-core instance does.
+    float32 inputs take every operand unrounded.  y in x's dtype."""
+    f32 = torch.float32
+    bh, t, p = x.shape
+    n = b.shape[2]
+    q = min(q, t)
+    nc = t // q
+    split = x.dtype != f32
+
+    def terms(v: torch.Tensor) -> tuple:
+        if not split:
+            return (v,)
+        hi = v.to(x.dtype).to(f32)
+        return hi, (v - hi).to(x.dtype).to(f32)
+
+    xf = x.to(f32).reshape(bh, nc, q, p)
+    bf = b.to(f32).reshape(bh, nc, q, n)
+    cf = c.to(f32).reshape(bh, nc, q, n)
+    dtf = dt.to(f32).reshape(bh, nc, q)
+    acum = torch.cumsum(dtf * a.to(f32).reshape(bh, 1, 1), dim=-1)
+    total = acum[..., -1]  # (BH, NC)
+
+    # pass 1: chunk states
+    wx = (dtf * torch.exp(total[..., None] - acum))[..., None] * xf
+    ds = sum(v.transpose(-1, -2) @ bf for v in terms(wx))  # (BH, NC, P, N)
+    # pass 2: the state entering each chunk
+    s_in = torch.empty_like(ds)
+    s = torch.zeros_like(ds[:, 0])
+    for ci in range(nc):
+        s_in[:, ci] = s
+        s = torch.exp(total[:, ci])[:, None, None] * s + ds[:, ci]
+    # pass 3: the chunk scan, 64-row tiles
+    y = torch.empty((bh, nc, q, p), dtype=f32, device=x.device)
+    zero = torch.zeros((), dtype=f32, device=x.device)
+    s_terms = terms(s_in)
+    for i0 in range(0, q, SSD_TILE):
+        rows = slice(i0, min(i0 + SSD_TILE, q))
+        ci_ = cf[:, :, rows]
+        acc = sum(ci_ @ v.transpose(-1, -2) for v in s_terms) * torch.exp(acum[:, :, rows, None])
+        ri = torch.arange(rows.start, rows.stop, device=x.device)[:, None]
+        for j0 in range(0, i0 + 1, SSD_TILE):
+            cols = slice(j0, min(j0 + SSD_TILE, q))
+            cj = torch.arange(cols.start, cols.stop, device=x.device)[None, :]
+            keep = cj <= ri
+            decay = torch.exp(acum[:, :, rows, None] - acum[:, :, None, cols])
+            g = torch.where(keep, (ci_ @ bf[:, :, cols].transpose(-1, -2)) * decay
+                            * dtf[:, :, None, cols], zero)
+            acc = acc + sum(v @ xf[:, :, cols] for v in terms(g))
+        y[:, :, rows] = acc
+    return y.reshape(bh, t, p).to(x.dtype)

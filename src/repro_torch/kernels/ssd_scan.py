@@ -7,15 +7,19 @@ The function of the JAX package's Pallas ``ssd_scan_bhtpn`` over
 ``q = min(q, T)``) as the SSD algebra; y in x's dtype.
 
 ``ssd_scan_bhtpn`` launches the hand-written CUDA kernel
-(``csrc/ssd_scan.cu``: one block per row walking its chunks in 64-row
-tiles, the state in shared memory) for a CUDA tensor and takes the plain
-PyTorch version ``ssd_scan_torch`` (the per-step recurrence of ``ref.py``)
-for a CPU tensor.  Both sides keep the Pallas wrapper's shape rule: ``T``
+(``csrc/ssd_scan.cu``: three chunk-parallel passes, chunk states, state
+passing and a chunk scan in 64-row tiles; bf16 on the tensor cores with
+every float32 operand as bf16 hi + lo terms, float32 as SIMT FMAs) for a
+CUDA tensor and takes the plain PyTorch version ``ssd_scan_torch`` (the
+per-step recurrence of ``ref.py``) for a CPU tensor;
+``ref.ssd_scan_tiled_ref`` repeats the kernel's arithmetic.  Both sides keep the Pallas wrapper's shape rule: ``T``
 must be a multiple of ``min(q, T)``.  The kernel takes x, b and c in bf16
 or float32 (one dtype), P in ``SUPPORTED_P``, N in ``SUPPORTED_N`` and a
 chunk of at most ``MAX_CHUNK``; anything else on a CUDA tensor raises
 ``ValueError``, and a failed build or launch raises: there is no fallback.
-Each launch adds one to ``ssd_scan_bhtpn.launches``.
+Each call that launches the kernel's passes adds one to
+``ssd_scan_bhtpn.launches``.  The wrapper allocates the passes' float32
+workspace (:func:`workspace_floats`) with ``torch.empty``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ __all__ = [
     "reset_launches",
     "ssd_scan_bhtpn",
     "ssd_scan_torch",
+    "workspace_floats",
 ]
 
 SUPPORTED_P = (16, 32, 64)  # head dims of the mamba2_130m and jamba_v01_52b configs
@@ -45,6 +50,12 @@ def ssd_scan_torch(x, dt, a, b, c, *, q: int = 128) -> torch.Tensor:
     """The plain version: the per-step recurrence, float32 state (``q`` does
     not change the function)."""
     return ssd_scan_ref(x, dt, a, b, c)
+
+
+def workspace_floats(bh: int, t: int, p: int, n: int, q: int) -> int:
+    """Floats of the kernel's workspace: a (P, N) state per chunk of every
+    row, then the per-step cumulative decay of every row."""
+    return bh * (t // min(q, t)) * p * n + bh * t
 
 
 def _check_shapes(x, dt, a, b, c, q: int) -> int:
@@ -108,10 +119,12 @@ def ssd_scan_bhtpn(
     bh, t, p = x.shape
     if bh == 0:
         return out
+    n = b.shape[2]
+    ws = torch.empty(workspace_floats(bh, t, p, n, chunk), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = library("ssd_scan").repro_ssd_scan(
             x.data_ptr(), dt32.data_ptr(), a32.data_ptr(), b.data_ptr(), c.data_ptr(),
-            out.data_ptr(), bh, t, p, b.shape[2], chunk, _DTYPE_CODE[x.dtype],
+            out.data_ptr(), ws.data_ptr(), bh, t, p, n, chunk, _DTYPE_CODE[x.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

@@ -1608,17 +1608,19 @@ class VectorTorchFlowSim(VectorFlowSim):
     """Vector engine with the CUDA cap-chain kernel on its wide fronts.
 
     Fronts wider than ``cfg.vector_scalar_cutoff`` route the per-flow
-    min-cap chain through :func:`repro_torch.kernels.cap_chain.cap_chain_rates`
-    on ``cfg.device``: the hand-written CUDA kernel on ``"cuda"``, its plain
-    PyTorch version on ``"cpu"``.  Both run in float64 with numpy's IEEE
+    min-cap chain through a
+    :class:`repro_torch.kernels.cap_chain.CapChainStaging` on ``cfg.device``:
+    the hand-written CUDA kernel on ``"cuda"``, its plain PyTorch version on
+    ``"cpu"``.  Both run in float64 with numpy's IEEE
     operations and operand order, so the event log is bit-identical to
     :class:`VectorFlowSim`, which stays the policing oracle for this tier.
     Narrow fronts keep the inherited scalar path.  ``device="cuda"`` on a
     host without CUDA raises here; the engine never falls back to the CPU.
 
     The engine state stays in the host's numpy arrays: the front's operands
-    are gathered there, copied to the device, rated by one launch and the
-    rates copied back.
+    are gathered straight into one packed (pinned) host buffer, copied to
+    the device in one copy, rated by one launch and the rates copied back
+    into pinned memory, all in one call.
     """
 
     def __init__(self, cfg: SimConfig | None = None, *, record_rates: bool = False):
@@ -1632,21 +1634,33 @@ class VectorTorchFlowSim(VectorFlowSim):
                 "but CUDA is not available; pass device='cpu' to run the "
                 "plain PyTorch version"
             )
+        from repro_torch.kernels.cap_chain import CapChainStaging
+
+        self._staging = CapChainStaging(self._device)
         self.dispatch_stats["fronts_torch"] = 0
         self.dispatch_stats["flows_torch"] = 0
 
     def _front_operands(
         self, fids: np.ndarray, src: np.ndarray, dst: np.ndarray
     ) -> tuple[np.ndarray, ...]:
-        """One front's per-flow cap-chain operands, gathered on the host.
+        """One front's per-flow cap-chain operands, gathered on the host
+        straight into the staging buffer's packed segments.
 
         ``(n_out, n_in, out_cap, qps, par_rate, blk)`` in the order
-        :func:`~repro_torch.kernels.cap_chain.cap_chain_rates` takes them.
-        The parent cap is gathered as +inf where absent or already done,
-        matching the numpy path's masked minimum.
+        :func:`~repro_torch.kernels.cap_chain.cap_chain_rates` takes them:
+        views that the next front overwrites.  The parent cap is gathered as
+        +inf where absent or already done, matching the numpy path's masked
+        minimum.
         """
+        n_out, n_in, out_cap, qps, pr, blk = ops = self._staging.segments(fids.size)
+        # mode="clip": indices are in range, and "raise" buffers ``out``
+        np.take(self._nout_cnt, src, out=n_out, mode="clip")
+        np.take(self._nin_cnt, dst, out=n_in, mode="clip")
+        np.take(self._nout_cap, src, out=out_cap, mode="clip")
+        np.take(self._nqps, src, out=qps, mode="clip")
+        np.take(self._fblk, fids, out=blk, mode="clip")
         par = self._fpar[fids]
-        pr = np.full(fids.size, np.inf, dtype=_F64)
+        pr.fill(np.inf)
         pm = par >= 0
         if pm.any():
             pi = np.flatnonzero(pm)
@@ -1655,32 +1669,19 @@ class VectorTorchFlowSim(VectorFlowSim):
                 pi = pi[live]
             if pi.size:
                 pr[pi] = self._rate[par[pi]]
-        return (
-            self._nout_cnt[src],
-            self._nin_cnt[dst],
-            self._nout_cap[src],
-            self._nqps[src],
-            pr,
-            self._fblk[fids],
-        )
+        return ops
 
     def _front_rates(
         self, fids: np.ndarray, src: np.ndarray, dst: np.ndarray
     ) -> np.ndarray:
-        import torch
-
-        from repro_torch.kernels.cap_chain import cap_chain_rates
-
         cfg = self.cfg
         stats = self.dispatch_stats
         stats["fronts_torch"] += 1
         stats["flows_torch"] += int(fids.size)
-        dev = self._device
-        rates = cap_chain_rates(
-            *(torch.from_numpy(a).to(dev) for a in self._front_operands(fids, src, dst)),
+        self._front_operands(fids, src, dst)
+        return self._staging.rates(
             per_stream_cap=cfg.per_stream_cap,
             in_cap=cfg.vm_nic.in_cap,
             decompress_rate=cfg.decompress_rate,
             block_size=cfg.block_size,
         )
-        return rates.cpu().numpy()
