@@ -7,12 +7,16 @@ Run from the root of a checkout, with no arguments::
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together; the registers, spills and SASS
-of every K3 and K5 instance are reported), holds each against its plain
-PyTorch version on the card (K3 at every head dim the configs use and at
-ragged T < 128, its bf16 tensor-core instance also against
-``flash_attention_tiled_ref``, which shares its rounding points; K5 at every
-(P, N) it takes, a chunk under 64 rows included, also against
-``ssd_scan_tiled_ref``), and drives the port's two paths:
+of every K3, K4 and K5 instance are reported), holds each against its plain
+PyTorch version on the card (K2 against ``torch.bincount`` on edge cases
+and the giga plan; K3 at every head dim the configs use and at ragged
+T < 128, its bf16 tensor-core instance also against
+``flash_attention_tiled_ref``, which shares its rounding points; K4 at
+every head dim on prefix, ring and scattered masks, its bf16 tiled
+instance also against ``decode_attention_tiled_ref``, and with NaN in every
+fully masked tile, which it must never read; K5 at every (P, N) it takes,
+a chunk under 64 rows included, also against ``ssd_scan_tiled_ref``), and
+drives the port's two paths:
 
 * provisioning: ``repro_torch.sim.run_scale`` with the ``vector_torch``
   engine on ``cuda`` at the paper tier (1,000 VMs, 5 x 500 containers) and
@@ -38,8 +42,9 @@ ragged T < 128, its bf16 tensor-core instance also against
     deepseek_7b's smoke config.
 
 It then times the kernels (K1's packed engine route beside its tensor
-wrapper, K3's bf16 and float32 instances each beside causal SDPA, K5's three
-passes).  Each phase prints one JSON line; any failure
+wrapper; K2 and K4 with a cold L2, rotating through operand sets over
+``COLD_BYTES`` in all, each beside its first design in the same run; K3's
+bf16 and float32 instances each beside causal SDPA; K5's three passes).  Each phase prints one JSON line; any failure
 raises and the script exits non-zero.  The last lines are the kernel table, the
 card's name and power limit as ``nvidia-smi`` reports them, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout, it
@@ -103,6 +108,12 @@ K3_TILED = (1e-3, 1e-2)
 K4_SWEEP = [(512, 511), (1024, 700), (2048, 1)]
 K4_SERVE = (128, 1024, 128)
 K4_TOL = K3_TOL
+# the bf16 tiled instance against decode_attention_tiled_ref, which shares
+# its tiles, skip rule and splits: 1e-3 + 1e-2 |want|
+K4_TILED = (1e-3, 1e-2)
+# also timed: granite_moe_1b's decode heads (4 requests x 16, hd 64) and
+# gemma3_1b's (4 x 4, hd 256), at deepseek_7b's S and valid count
+K4_OTHER = [(64, 64), (16, 256)]
 
 # K5 shapes: the SSD sweep of tests/test_kernels.py as (T, H, P, G, N, chunk)
 # at B 2, and mamba2_130m's full-width prefill (B 4, T 512, 24 heads x 64,
@@ -119,6 +130,11 @@ K5_TILED = (1e-3, 1e-2)
 K5_PAIRS_SHAPES = [(256, 2, 128), (96, 2, 48)]
 
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_BATCH = 8, 512, 16, 4
+
+# K2 and K4 are timed with a cold L2: each call rotates through operand sets
+# that together exceed this, so no launch finds its operands in the 50 MB L2
+# (a served decode step's other layers evict layer 0's cache the same way).
+COLD_BYTES = 150e6
 
 CAPS = dict(
     per_stream_cap=30e6,
@@ -211,6 +227,21 @@ def graph_ms(fn, reps: int = 200) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (5 * reps)
+
+
+def rotation(fns):
+    """A callable that calls ``fns`` in turn, one per call."""
+    import itertools
+
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def cold_sets(set_bytes: float) -> int:
+    """Operand sets to rotate through so that each launch finds its operands
+    cold: together over ``COLD_BYTES``, so the other sets touched since a
+    set's last launch exceed the 50 MB L2."""
+    return max(3, -(-int(COLD_BYTES) // int(set_bytes)))
 
 
 def event_ms(fn, iters: int = 200) -> float:
@@ -326,18 +357,28 @@ def phase_build() -> list:
     ptxas = {n: ptxas_summary(_build.build_log_path(n).read_text()) for n in names
              if _build.build_log_path(n).exists()}
     k3 = k3_instances(paths["flash_attention"], ptxas["flash_attention"])
+    k2 = [r for r in ptxas["cap_chain"] if "nic_flow_counts_kernel" in r["kernel"]]
+    check(len(k2) == 1, f"K2 in the ptxas log: {k2}")
+    k4 = k4_instances(paths["decode_attention"], ptxas["decode_attention"])
     k5 = k5_instances(paths["ssd_scan"], ptxas["ssd_scan"])
     emit("build", seconds=time.perf_counter() - t0, compiled=fresh,
          libraries={n: str(paths[n].relative_to(ROOT)) for n in names},
          nvcc_flags={n: " ".join(_build.LIBRARIES[n][1]) for n in names}, ptxas=ptxas,
-         k3_instances=k3, k5_instances=k5)
-    return {"k3": k3, "k5": k5}
+         k3_instances=k3, k4_instances=k4, k5_instances=k5)
+    return {"k2": k2[0], "k3": k3, "k4": k4, "k5": k5}
 
 
-def sass_counts(lib_path: Path, classify) -> dict | None:
-    """HMMA, LDGSTS and LDSM instruction counts (``cuobjdump -sass``) of each
-    kernel of a library that ``classify`` maps to a key; None without
-    cuobjdump."""
+SASS_OPS = {"hmma": r"\bHMMA\b", "ldgsts": r"\bLDGSTS\b", "ldsm": r"\bLDSM\b"}
+# K4's bf16 instance: bulk copies (cp.async.bulk), 16-byte shared loads, and
+# the instructions it must not need
+K4_SASS_OPS = {"ublkcp": r"\bUBLKCP\b", "lds_128": r"\bLDS(?:\.U)?\.128\b",
+               "ldgsts": r"\bLDGSTS\b", "hmma": r"\bHMMA\b"}
+
+
+def sass_counts(lib_path: Path, classify, ops: dict = SASS_OPS) -> dict | None:
+    """Counts of the instructions ``ops`` (name -> regex over ``cuobjdump
+    -sass`` lines) in each kernel of a library that ``classify`` maps to a
+    key; None without cuobjdump."""
     import os
     import re
     import shutil
@@ -354,13 +395,47 @@ def sass_counts(lib_path: Path, classify) -> dict | None:
         if m:
             key = classify(m.group(1))
             if key:
-                counts[key] = dict(hmma=0, ldgsts=0, ldsm=0)
+                counts[key] = dict.fromkeys(ops, 0)
             continue
         if key:
-            for op in ("HMMA", "LDGSTS", "LDSM"):
-                if re.search(rf"\b{op}\b", line):
-                    counts[key][op.lower()] += 1
+            for name, pattern in ops.items():
+                if re.search(pattern, line):
+                    counts[key][name] += 1
     return counts
+
+
+def k4_instance(kernel_name: str) -> int | None:
+    """hd of a K4 bf16 tiled kernel from its demangled or mangled name."""
+    import re
+
+    m = re.search(r"decode_tiled_kernel(?:<|ILi)(\d+)", kernel_name)
+    return int(m.group(1)) if m else None
+
+
+def k4_instances(lib_path: Path, ptxas: list) -> list:
+    """Registers and spills (ptxas) and bulk-copy, LDS.128, LDGSTS and HMMA
+    counts (``cuobjdump -sass``) of every K4 bf16 instance.  Each must issue
+    bulk copies and 16-byte shared loads, and the instances at hd 64 and 128
+    must not spill."""
+    from repro_torch.kernels.decode_attention import SUPPORTED_HD
+
+    rows = {}
+    for r in ptxas:
+        hd = k4_instance(r["kernel"])
+        if hd:
+            rows[hd] = {"hd": hd, "registers": r.get("registers"),
+                        "spill_stores": r.get("spill_stores"), "spill_loads": r.get("spill_loads")}
+    check(sorted(rows) == sorted(SUPPORTED_HD), f"K4 instances in the ptxas log: {sorted(rows)}")
+    counts = sass_counts(lib_path, k4_instance, K4_SASS_OPS)
+    if counts is not None:
+        for hd, c in counts.items():
+            rows[hd].update(c)
+        for hd, r in rows.items():
+            check(r.get("ublkcp", 0) > 0 and r.get("lds_128", 0) > 0, f"K4 bf16 hd {hd} SASS: {r}")
+    for hd in (64, 128):
+        r = rows[hd]
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"K4 bf16 hd {hd} spills: {r}")
+    return [rows[hd] for hd in sorted(rows)]
 
 
 def k3_instance(kernel_name: str) -> tuple[str, int] | None:
@@ -464,12 +539,41 @@ def phase_kernels_vs_plain() -> float:
                 bad, err = bit_mismatch(got, want)
                 check(bad == 0, f"K1 vs {ref_name} at n={n} blk={blk_mode}: {bad} lanes, max err {err}")
                 worst = max(worst, err)
-    nodes = torch.from_numpy(np.random.default_rng(7).integers(0, 1000, 100_000)).cuda()
-    check(torch.equal(cc.nic_flow_counts(nodes, 1000), cc.nic_flow_counts_torch(nodes, 1000)),
-          "K2 vs plain on seeded nodes")
+    rng = np.random.default_rng(7)
+    k2_cases = {  # every lane of a warp in one match group; sorted; random; odd n; n = 1
+        "one_nic": np.full(100_000, 7), "sorted": np.sort(rng.integers(0, 1000, 100_001)),
+        "random": rng.integers(0, 1000, 100_000), "odd": rng.integers(0, 1000, 999),
+        "one_flow": np.array([999]), "offset_view": rng.integers(0, 1000, 4098)}
+    for name, ids in k2_cases.items():
+        nodes = torch.from_numpy(ids).cuda()
+        if name == "offset_view":  # 8 bytes past a 16-byte boundary: the peeled head
+            nodes = nodes[1:]
+        got = cc.nic_flow_counts(nodes, 1000)
+        check(torch.equal(got, cc.nic_flow_counts_torch(nodes, 1000)), f"K2 vs plain, {name}")
+        check(torch.equal(got, torch.bincount(nodes, minlength=1000)), f"K2 vs bincount, {name}")
     emit("kernels_vs_plain", k1_widths=[1, 255, 257, 901, 100_000], k1_bit_identical=True,
-         k1_max_abs_err=worst, k2_exact=True)
+         k1_max_abs_err=worst, k2_exact=True, k2_cases=sorted(k2_cases))
     return worst
+
+
+def k2_plan_stats(src: np.ndarray) -> dict:
+    """What contention K2 meets on a plan's source NICs, and the atomics its
+    kernel issues: one per run of equal ids in each aligned window of 32
+    consecutive flows (a warp's 64 ids, as two halves; the array starts
+    16-byte aligned, as a fresh allocation does), plus one for an odd tail."""
+    def runs(rows: np.ndarray) -> np.ndarray:  # runs of equal values >= 0 per row
+        return (rows[:, :1] >= 0).sum(1) + ((rows[:, 1:] != rows[:, :-1]) & (rows[:, 1:] >= 0)).sum(1)
+
+    n = src.size
+    per_nic = np.bincount(src)
+    distinct32 = runs(np.sort(src[:32 * (n // 32)].reshape(-1, 32), axis=1))
+    paired = src[:2 * (n // 2)]
+    windows = np.concatenate([paired, np.full(-len(paired) % 32, -1)]).reshape(-1, 32)
+    atomics = int(runs(windows).sum()) + n % 2
+    return {"max_flows_per_nic": int(per_nic.max()), "source_nics": int((per_nic > 0).sum()),
+            "distinct_per_32_mean": float(distinct32.mean()),
+            "distinct_per_32_median": float(np.median(distinct32)),
+            "atomics": int(atomics), "atomics_per_flow": atomics / n}
 
 
 def run_tier(cfg):
@@ -563,6 +667,7 @@ def phase_giga_tier(bench: dict) -> dict:
     check(torch.equal(got, cc.nic_flow_counts_torch(nodes, n_nodes)), "K2 vs plain on the giga plan")
     check(np.array_equal(got.cpu().numpy(), np.bincount(sim._fsrc[:n_flows], minlength=n_nodes)),
           "K2 vs numpy bincount on the giga plan")
+    k2_stats = k2_plan_stats(sim._fsrc[:n_flows].copy())
     del sim, engines[:]
     # The same tier on the host-only numpy engine, on the same machine, in
     # turns (card, numpy, numpy, card): the card tier's cost or gain end to
@@ -579,6 +684,7 @@ def phase_giga_tier(bench: dict) -> dict:
                n_flows=res.n_flows, fronts_torch=ds["fronts_torch"], flows_torch=ds["flows_torch"],
                fronts_scalar=ds["fronts_scalar"], k1_launches=k1, k2_launches=k2,
                mean_front=fronts["mean"][0], widest_front=fronts["widest"][0], k2_nodes=n_nodes,
+               k2_plan=k2_stats,
                vector_engine_wall_s=vec.wall_s, engine_walls_abba_s=engine_walls,
                vector_engine_walls_abba_s=vector_walls,
                engine_minus_vector_engine_wall_s=(sum(engine_walls) - sum(vector_walls)) / 2,
@@ -638,36 +744,55 @@ def time_k1(ops) -> dict:
 
 
 def time_k2(nodes, n_nodes: int) -> dict:
+    """K2 on the giga plan with a cold L2 (a rotation of copies of the node
+    ids, each with its own counts), ``counts.zero_()`` inside each timed
+    call: the kernel, the first design's kernel (its timing-only C entry) in
+    turns (new, old, old, new), each also warm; the plain version and
+    ``torch.bincount`` over the same rotation."""
     import torch
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import cap_chain as cc
 
     n = nodes.numel()
-    counts = torch.zeros(n_nodes, dtype=torch.int64, device="cuda")
+    nsets = cold_sets(8 * n + 8 * n_nodes)
+    sets = [(nodes.clone(), torch.zeros(n_nodes, dtype=torch.int64, device="cuda"))
+            for _ in range(nsets)]
     lib = _build.library("cap_chain")
 
-    def launch():
-        counts.zero_()
-        rc = lib.repro_nic_flow_counts(nodes.data_ptr(), n, counts.data_ptr(),
-                                       torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"K2 launch returned {rc}")
+    def call(entry, ids, counts):
+        def launch():
+            counts.zero_()
+            rc = entry(ids.data_ptr(), n, counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"K2 launch returned {rc}")
+        return launch
 
+    new = [call(lib.repro_nic_flow_counts, *st) for st in sets]
+    old = [call(lib.repro_nic_flow_counts_scalar, *st) for st in sets]
+    reps = nsets * 10
+    runs = [graph_ms(rotation(new), reps), graph_ms(rotation(old), reps),
+            graph_ms(rotation(old), reps), graph_ms(rotation(new), reps)]
+    want = torch.bincount(nodes, minlength=n_nodes)
+    for ids, counts in sets[:2]:
+        check(torch.equal(counts, want), "K2 timed output vs bincount")
     ones = torch.ones_like(nodes)
 
-    def plain():  # nic_flow_counts_torch without its host-side range check
-        return torch.zeros(n_nodes, dtype=torch.int64, device="cuda").index_add_(0, nodes, ones)
+    def plain(ids):  # nic_flow_counts_torch without its host-side range check
+        return lambda: torch.zeros(n_nodes, dtype=torch.int64, device="cuda").index_add_(0, ids, ones)
 
     out = dict(
-        n=n,
-        n_nodes=n_nodes,
-        ms=graph_ms(launch),
-        plain_ms=graph_ms(plain),
-        wrapper_ms=event_ms(lambda: cc.nic_flow_counts(nodes, n_nodes)),
-        library_ms=event_ms(lambda: torch.bincount(nodes, minlength=n_nodes)),
+        n=n, n_nodes=n_nodes, cold_sets=nsets, ms=(runs[0] + runs[3]) / 2,
+        old_design_ms=(runs[1] + runs[2]) / 2, abba_ms=runs,
+        warm_ms=graph_ms(new[0], reps=100), old_design_warm_ms=graph_ms(old[0], reps=100),
+        plain_ms=graph_ms(rotation([plain(ids) for ids, _ in sets]), reps),
+        wrapper_ms=event_ms(rotation([lambda ids=ids: cc.nic_flow_counts(ids, n_nodes)
+                                      for ids, _ in sets]), iters=reps),
+        library_ms=event_ms(rotation([lambda ids=ids: torch.bincount(ids, minlength=n_nodes)
+                                      for ids, _ in sets]), iters=reps),
     )
     # read each int64 index once, write each int64 count once; one add a flow
     out["bound_ms"], out["bound_by"] = bound_ms(8 * n + 8 * n_nodes, n, INT32_OPS_PER_S)
+    del sets
     return out
 
 
@@ -735,8 +860,10 @@ def k4_operands(bh: int, s: int, hd: int, dtype: str, seed: int):
 def phase_k4_vs_plain() -> dict:
     import torch
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import decode_attention_tiled_ref
 
     worst, per_case = {}, []
 
@@ -775,12 +902,93 @@ def phase_k4_vs_plain() -> dict:
         for r in (1, 5):
             ok, err = within(got[r, 0], v[r].float().mean(0), K4_TOL[dt], K4_TOL[dt])
             check(ok, f"K4 no-valid row {r} vs the mean of v: {err}")
+    # every head dim of the bf16 tiled instance (and the float32 instance at
+    # the same hd) on prefix, ring and scattered masks; bf16 also against
+    # decode_attention_tiled_ref
+    worst_tiled = 0.0
+    for hd in da.SUPPORTED_HD:
+        for dt in ("bfloat16", "float32"):
+            for kind in ("prefix", "ring", "scattered"):
+                q, k, v = k4_operands(32, 1024, hd, dt, seed=hd)
+                valid = k4_mask(kind, 32, 1024, seed=hd)
+                got = run(f"{kind} hd {hd}", q, k, v, valid, dt)
+                if dt == "bfloat16":
+                    tiled = decode_attention_tiled_ref(q, k, v, valid, scale=hd**-0.5)
+                    ok, err = within(got, tiled, *K4_TILED)
+                    check(ok, f"K4 vs the tiled version, {kind} hd {hd}: max err {err}")
+                    worst_tiled = max(worst_tiled, err)
+    # NaN in k and v of every tile with no valid key, in rows that have one:
+    # the output must be finite and equal the plain version on the same
+    # operands with those slots zeroed (such tiles are never read)
+    nan_rows = []
+    for hd in da.SUPPORTED_HD:
+        q, k, v = k4_operands(128, 1024, hd, "bfloat16", seed=3 * hd)
+        valid = k4_mask("ring", 128, 1024, seed=hd)
+        dead = (~valid.view(128, 16, 64).bool().any(-1)).repeat_interleave(64, dim=1)
+        k_nan, v_nan, k0, v0 = k.clone(), v.clone(), k.clone(), v.clone()
+        k_nan[dead], v_nan[dead], k0[dead], v0[dead] = float("nan"), float("nan"), 0, 0
+        got = da.decode_attention_bhsd(q, k_nan, v_nan, valid, scale=hd**-0.5)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K4 read a fully masked tile at hd {hd}")
+        ok, err = within(got, da.decode_attention_torch(q, k0, v0, valid, scale=hd**-0.5),
+                         K4_TOL["bfloat16"], K4_TOL["bfloat16"])
+        check(ok, f"K4 with NaN in fully masked tiles at hd {hd}: max err {err}")
+        nan_rows.append({"hd": hd, "nan_slots": int(dead.sum()), "max_abs_err": err})
+    # split counts other than the plan's, through the C entry: long rows,
+    # so each split refills its 3-stage ring many times
+    lib = _build.library("decode_attention")
+    q, k, v = k4_operands(8, 4096, 128, "bfloat16", seed=41)
+    valid = k4_mask("scattered", 8, 4096, seed=41)
+    for nsplit in (1, 3, 64):
+        o = torch.empty_like(q)
+        k4_tiled_call(lib, q, k, v, valid, o, nsplit)()
+        torch.cuda.synchronize()
+        ok, err = within(o, decode_attention_tiled_ref(q, k, v, valid, scale=128**-0.5,
+                                                       nsplit=nsplit), *K4_TILED)
+        check(ok, f"K4 at nsplit {nsplit} vs the tiled version: max err {err}")
+        worst_tiled = max(worst_tiled, err)
     bh, s, hd = K4_SERVE
     q, k, v = k4_operands(bh, s, hd, "bfloat16", seed=7)
     valid = (torch.arange(s, device="cuda") < 528).to(torch.int32)[None].expand(bh, s).contiguous()
     run("deepseek_7b decode", q, k, v, valid, "bfloat16")
-    emit("k4_vs_plain", tolerances=K4_TOL, worst=worst, cases=per_case)
+    emit("k4_vs_plain", tolerances=K4_TOL, tiled_bound=K4_TILED, worst=worst,
+         worst_vs_tiled=worst_tiled, nan_in_masked_tiles=nan_rows, cases=per_case)
     return {"worst": worst, "serve_err": per_case[-1]["max_abs_err"]}
+
+
+def k4_mask(kind: str, bh: int, s: int, seed: int):
+    """(BH, S) int32 masks on the card: a prefix, a ring run that may wrap
+    past S, or scattered slots, each row its own length or draw."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    valid = np.zeros((bh, s), np.int32)
+    for r in range(bh):
+        n = int(rng.integers(1, s + 1))
+        if kind == "prefix":
+            valid[r, :n] = 1
+        elif kind == "ring":
+            valid[r, (int(rng.integers(0, s)) + np.arange(n)) % s] = 1
+        else:
+            valid[r] = rng.random(s) < 0.2
+    return torch.from_numpy(valid).cuda()
+
+
+def k4_tiled_call(lib, q, k, v, valid, o, nsplit: int):
+    """A launch of K4's bf16 instance at a given split count, through its C
+    entry (with its own workspace: partials, then the per-row counters), as
+    a closure."""
+    import torch
+
+    bh, s, hd = k.shape
+    ws = torch.empty(bh * nsplit * (hd + 2) + bh, dtype=torch.float32, device="cuda")
+
+    def launch():
+        rc = lib.repro_decode_attention_tiled(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), o.data_ptr(),
+            ws.data_ptr(), bh, s, hd, nsplit, hd**-0.5, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"K4 launch returned {rc}")
+    return launch
 
 
 def k5_operands(b: int, t: int, h: int, p: int, g: int, n: int, dtype: str, seed: int):
@@ -976,6 +1184,8 @@ def phase_serve_full_width() -> dict:
     check(len(steps) == out["decode_steps"], f"recorded decode steps {len(steps)}")
     out["k3_launches"] = k3
     out["k4_path"] = k4_on_decode_steps(steps, scale=cfg.hd**-0.5)
+    check(out["k4_path"]["launches"] == len(steps) > 0,
+          f"K4 launches on the decode steps: {out['k4_path']['launches']} of {len(steps)}")
     del steps
     out["profile"] = profile_prefill_and_decode(served["model"], params, served["prompts"][:SERVE_BATCH])
     out["f32_check"] = f32_pallas_vs_chunked(cfg, params, served["prompts"][:SERVE_BATCH])
@@ -1312,45 +1522,76 @@ def time_k3(bh: int, t: int, hd: int, dtype: str = "bfloat16") -> dict:
     return out
 
 
-def time_k4() -> dict:
-    """K4 at deepseek_7b's decode shape, 528 of 1024 slots valid."""
+def time_k4(bh: int, hd: int, sweep: bool = False) -> dict:
+    """K4 at one decode shape, S 1024 with 528 slots valid, bf16, with a cold
+    L2 (a rotation of operand sets): the tiled instance at the plan's split
+    count, the first design (the generic instance, every slot) through its
+    own C entry, in turns (new, old, old, new), each also warm (one set
+    replayed); the plain version, the wrapper and SDPA with a boolean mask
+    over the same rotation.  ``sweep`` adds the tiled instance at other
+    split counts."""
     import torch
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import decode_split_plan
 
-    bh, s, hd = K4_SERVE
+    s = 1024
     n_valid = SERVE_PROMPT + SERVE_NEW
-    q, k, v = k4_operands(bh, s, hd, "bfloat16", seed=2)
+    nsets = cold_sets(2 * bh * s * hd * 2)
     valid1 = (torch.arange(s, device="cuda") < n_valid).to(torch.int32)
-    valid = valid1[None].expand(bh, s).contiguous()
-    o = torch.empty_like(q)
-    nsplit = -(-s // da.SPLIT)
-    ws = torch.empty(bh * nsplit * (hd + 2), dtype=torch.float32, device="cuda")
+    sets = []
+    for i in range(nsets):
+        q, k, v = k4_operands(bh, s, hd, "bfloat16", seed=2 + i)
+        sets.append((q, k, v, valid1[None].expand(bh, s).contiguous(), torch.empty_like(q)))
     lib = _build.library("decode_attention")
     scale = hd**-0.5
+    nsplit = decode_split_plan(bh, s)[1]
+    new = [k4_tiled_call(lib, q, k, v, valid, o, nsplit) for q, k, v, valid, o in sets]
+    ws_old = torch.empty(bh * -(-s // da.GENERIC_SPLIT) * (hd + 2), dtype=torch.float32,
+                         device="cuda")
 
-    def launch():
-        rc = lib.repro_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                                        o.data_ptr(), ws.data_ptr(), bh, s, hd, da.SPLIT, 1, scale,
-                                        torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"K4 launch returned {rc}")
+    def old_call(q, k, v, valid, o):
+        def launch():
+            rc = lib.repro_decode_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), o.data_ptr(),
+                ws_old.data_ptr(), bh, s, hd, da.GENERIC_SPLIT, 1, scale,
+                torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"K4 generic launch returned {rc}")
+        return launch
 
-    b4 = [x.view(4, bh // 4, x.shape[1], hd) for x in (q, k, v)]
-    mask = valid.bool()[:, None, :]
+    old = [old_call(*st) for st in sets]
+    reps = nsets * 20
+    runs = [graph_ms(rotation(new), reps), graph_ms(rotation(old), reps),
+            graph_ms(rotation(old), reps), graph_ms(rotation(new), reps)]
+    # the timed launches computed the right thing
+    for q, k, v, valid, o in sets[:1]:
+        ok, err = within(o, da.decode_attention_torch(q, k, v, valid, scale=scale),
+                         K4_TOL["bfloat16"], K4_TOL["bfloat16"])
+        check(ok, f"K4 timed output at BH {bh} hd {hd}: max err {err}")
+    b4 = [[x.view(4, bh // 4, x.shape[1], hd) for x in st[:3]] for st in sets]
     out = dict(
-        bh=bh, s=s, hd=hd, valid_slots=n_valid, dtype="bfloat16",
-        ms=graph_ms(launch, reps=100),
-        plain_ms=event_ms(lambda: da.decode_attention_torch(q, k, v, valid, scale=scale), iters=50),
-        wrapper_ms=event_ms(lambda: ops.decode_attention(*b4, valid1, scale=scale), iters=100),
-        library_ms=event_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=scale), iters=100),
+        bh=bh, s=s, hd=hd, valid_slots=n_valid, dtype="bfloat16", nsplit=nsplit,
+        cold_sets=nsets, cold_bytes=nsets * 2 * bh * s * hd * 2,
+        ms=(runs[0] + runs[3]) / 2, old_design_ms=(runs[1] + runs[2]) / 2, abba_ms=runs,
+        warm_ms=graph_ms(new[0], reps=100), old_design_warm_ms=graph_ms(old[0], reps=100),
+        plain_ms=event_ms(rotation([lambda st=st: da.decode_attention_torch(
+            *st[:4], scale=scale) for st in sets]), iters=nsets * 5),
+        wrapper_ms=event_ms(rotation([lambda x=x: ops.decode_attention(*x, valid1, scale=scale)
+                                      for x in b4]), iters=reps),
+        library_ms=event_ms(rotation([lambda st=st: torch.nn.functional.scaled_dot_product_attention(
+            *st[:3], attn_mask=st[3].bool()[:, None, :], scale=scale) for st in sets]), iters=reps),
     )
+    if sweep:
+        out["nsplit_sweep_ms"] = {n: graph_ms(rotation([
+            k4_tiled_call(lib, *st, n) for st in sets]), reps) for n in (1, 2, 3, 4, 6, 8, 16)}
     # q, the mask and o once; k and v of the valid slots only (the output does
     # not depend on the others); 4 BH S hd flops over the valid slots
     n_bytes = bh * hd * 2 * 2 + bh * s * 4 + 2 * bh * n_valid * hd * 2
     out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, 4 * bh * n_valid * hd, BF16_OPS_PER_S)
+    del sets, b4
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1429,7 +1670,8 @@ def phase_timings(giga: dict) -> dict:
         "k3_hd256": time_k3(*K3_HD256),
         "k3_f32": time_k3(*K3_SERVE[:3], dtype="float32"),
         "k3_f32_hd256": time_k3(*K3_HD256, dtype="float32"),
-        "k4": time_k4(),
+        "k4": time_k4(*K4_SERVE[::2], sweep=True),
+        "k4_other": [time_k4(bh, hd, sweep=True) for bh, hd in K4_OTHER],
         "k5": time_k5(),
         "k5_f32": time_k5("float32"),
     }
@@ -1457,19 +1699,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi, name = phase_device()
-    build = phase_build()
-    k1_err = phase_kernels_vs_plain()
-    k3_check = phase_k3_vs_plain()
-    k4_check = phase_k4_vs_plain()
-    k5_check = phase_k5_vs_plain()
-    paper = phase_paper_tier(bench)
-    giga = phase_giga_tier(bench["giga_burst"])
-    serve = phase_serve_full_width()
-    mamba = phase_serve_mamba2_130m()
-    granite = phase_serve_granite_moe_1b()
-    cold = phase_cold_start()
-    times = phase_timings(giga)
+    phase_s = {}
+
+    def timed(phase, *args):  # seconds of each phase, for the script's time limit
+        t0 = time.perf_counter()
+        out = phase(*args)
+        phase_s[phase.__name__.removeprefix("phase_")] = time.perf_counter() - t0
+        return out
+
+    smi, name = timed(phase_device)
+    build = timed(phase_build)
+    k1_err = timed(phase_kernels_vs_plain)
+    k3_check = timed(phase_k3_vs_plain)
+    k4_check = timed(phase_k4_vs_plain)
+    k5_check = timed(phase_k5_vs_plain)
+    paper = timed(phase_paper_tier, bench)
+    giga = timed(phase_giga_tier, bench["giga_burst"])
+    serve = timed(phase_serve_full_width)
+    mamba = timed(phase_serve_mamba2_130m)
+    granite = timed(phase_serve_granite_moe_1b)
+    cold = timed(phase_cold_start)
+    times = timed(phase_timings, giga)
 
     src = "src/repro_torch/kernels/csrc/cap_chain.cu"
     mean, k2_t, k3_t, k4_t, k5_t = (times["k1"]["mean"], times["k2"], times["k3"], times["k4"],
@@ -1490,7 +1740,11 @@ def main() -> int:
          "ms": k2_t["ms"], "plain_ms": k2_t["plain_ms"],
          "bound_ms": k2_t["bound_ms"], "bound_by": k2_t["bound_by"],
          "library_ms": k2_t["library_ms"],
-         "on_main_path": False, "n": k2_t["n"], "wrapper_ms": k2_t["wrapper_ms"]},
+         "on_main_path": False, "n": k2_t["n"], "wrapper_ms": k2_t["wrapper_ms"],
+         "timing": "cold L2", "old_design_ms": k2_t["old_design_ms"], "warm_ms": k2_t["warm_ms"],
+         "old_design_warm_ms": k2_t["old_design_warm_ms"], "abba_ms": k2_t["abba_ms"],
+         "giga_plan": giga["k2_plan"], "registers": build["k2"].get("registers"),
+         "spill_stores": build["k2"].get("spill_stores")},
         {"name": "flash_attention_bhtd", "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:25",
          "launches": serve["k3_launches"], "max_abs_err": k3_check["serve_err"],
@@ -1509,7 +1763,11 @@ def main() -> int:
          "library_ms": k4_t["library_ms"], "library": "scaled_dot_product_attention (bool mask)",
          "on_main_path": False, "served_operand_launches": serve["k4_path"]["launches"],
          "shape": [k4_t["bh"], k4_t["s"], k4_t["hd"]], "dtype": "bfloat16",
-         "wrapper_ms": k4_t["wrapper_ms"], "served_max_abs_err": serve["k4_path"]["max_abs_err"]},
+         "wrapper_ms": k4_t["wrapper_ms"], "served_max_abs_err": serve["k4_path"]["max_abs_err"],
+         "timing": "cold L2", "old_design_ms": k4_t["old_design_ms"], "warm_ms": k4_t["warm_ms"],
+         "old_design_warm_ms": k4_t["old_design_warm_ms"], "abba_ms": k4_t["abba_ms"],
+         "nsplit": k4_t["nsplit"], "nsplit_sweep_ms": k4_t["nsplit_sweep_ms"],
+         "other_shapes": times["k4_other"], "instances": build["k4"]},
         {"name": "ssd_scan_bhtpn", "route": "cuda", "source": csrc + "ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:22",
          "launches": mamba["launches"]["ssd_scan_bhtpn"], "max_abs_err": k5_check["serve_err"],
@@ -1529,7 +1787,7 @@ def main() -> int:
     for k in kernels:
         check(not k["on_main_path"] or k["launches"] > 0, f"{k['name']} never launched on the main path")
         check(k.get("served_operand_launches", 1) > 0, f"{k['name']} never launched on served operands")
-    emit("done", seconds=time.perf_counter() - t_start)
+    emit("done", seconds=time.perf_counter() - t_start, phase_seconds=phase_s)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -25,15 +25,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 
 # --fmad=false: no multiply-add contraction, so every double operation rounds
 # exactly as numpy's does (bit-identity with the engine's numpy path).
+# ptxas reports each kernel's registers and spills into the build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # The model kernels (attention, decoding, SSD scan) have no bit-identity
-# contract: multiply-adds contract.  ptxas reports each kernel's registers
-# and spills into the build log.
-FLASH_NVCC_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false") + ("-Xptxas", "-v")
+# contract: multiply-adds contract.
+FLASH_NVCC_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 
 _P, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 
@@ -47,6 +47,8 @@ LIBRARIES = {
         "repro_cap_chain_front": [_P] * 4 + [_I64] + [_F64] * 4 + [_P],
         # nodes, n, counts, stream
         "repro_nic_flow_counts": [_P, _I64, _P, _P],
+        # the same, through the first design's kernel (timing only)
+        "repro_nic_flow_counts_scalar": [_P, _I64, _P, _P],
     }),
     "flash_attention": ("flash_attention.cu", FLASH_NVCC_FLAGS, {
         # q, k, v, o, bh, t, hd, dtype, scale, window, stream
@@ -55,6 +57,8 @@ LIBRARIES = {
     "decode_attention": ("decode_attention.cu", FLASH_NVCC_FLAGS, {
         # q, k, v, valid, o, ws, bh, s, hd, split, dtype, scale, stream
         "repro_decode_attention": [_P] * 6 + [_I64] * 4 + [_I32, _F64, _P],
+        # q, k, v, valid, o, ws, bh, s, hd, nsplit, scale, stream
+        "repro_decode_attention_tiled": [_P] * 6 + [_I64] * 4 + [_F64, _P],
     }),
     "ssd_scan": ("ssd_scan.cu", FLASH_NVCC_FLAGS, {
         # x, dt, a, b, c, y, ws, bh, t, p, n, q, dtype, stream

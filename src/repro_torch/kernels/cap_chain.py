@@ -13,7 +13,8 @@ minimum chain over per-flow gathered operands::
 ``cap_chain_rates`` computes it in one hand-written CUDA kernel
 (``csrc/cap_chain.cu``) for a CUDA tensor, and in the plain PyTorch version
 ``cap_chain_rates_torch`` for a CPU tensor.  ``nic_flow_counts`` is the
-per-NIC active-flow count (an atomic bincount kernel; plain version
+per-NIC active-flow count (a bincount kernel whose warps add each run of
+equal ids with one atomic; plain version
 ``nic_flow_counts_torch``).  The engine keeps those counts incrementally and
 calls neither the kernel nor its plain version for them.
 
@@ -192,7 +193,7 @@ def nic_flow_counts(nodes: torch.Tensor, n_nodes: int) -> torch.Tensor:
     """Active-flow count per NIC index: int64 of length ``n_nodes``.
 
     Raises ``IndexError`` for an index outside ``[0, n_nodes)``.  A CUDA
-    tensor launches the atomic bincount kernel; a CPU tensor takes
+    tensor launches the bincount kernel; a CPU tensor takes
     :func:`nic_flow_counts_torch`.
     """
     if nodes.device.type == "cpu":

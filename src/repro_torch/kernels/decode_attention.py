@@ -8,33 +8,53 @@ input dtype.  A row with no valid slot comes out as the uniform mean of v,
 as the oracle's softmax gives.
 
 ``decode_attention_bhsd`` launches the hand-written CUDA kernel
-(``csrc/decode_attention.cu``, split-S flash decoding: one block per
-(bh, 256-key split), then one merging block per bh) for a CUDA tensor and
-takes the plain PyTorch version ``decode_attention_torch`` (the
-full-matrix oracle of ``ref.py``) for a CPU tensor.  Both sides keep the
-Pallas wrapper's shape rule: ``S`` must be a multiple of ``min(bs, S)``,
-although the kernel's splits do not follow ``bs``.  The kernel takes bf16
-and float32; anything else on a CUDA tensor raises ``ValueError``, and a
-failed build or launch raises: there is no fallback.  Each launch adds one
-to ``decode_attention_bhsd.launches``.
+(``csrc/decode_attention.cu``) for a CUDA tensor and takes the plain
+PyTorch version ``decode_attention_torch`` (the full-matrix oracle of
+``ref.py``) for a CPU tensor.  The source holds two instances, picked by
+(dtype, hd) alone:
+
+* bf16 at ``hd`` in ``SUPPORTED_HD``: 64-key tiles split over ~132 blocks
+  (``ref.decode_split_plan``; split ``sp`` owns tiles ``sp, sp + nsplit,
+  ...``).  A block reads its tiles' valid words first and loads k and v
+  only of the tiles that hold a valid key, through a 3-stage ring of bulk
+  copies; in a tile it reads, a masked key is selected out.  So non-finite
+  values in masked slots never reach the output, where the Pallas kernel,
+  which reads every slot, propagates 0 * NaN; the models' caches are
+  zero-initialised, so no served path sees the difference.  Only a row with
+  no valid slot at all reads its masked v (for the mean).
+  ``ref.decode_attention_tiled_ref`` repeats its arithmetic.  Its operands
+  must be 16-byte aligned, as every allocation is.
+* float32, and bf16 at any other hd: the first design, split-S flash
+  decoding over every slot (one block per (bh, ``GENERIC_SPLIT``-key
+  split), then a merging block per bh).
+
+Both sides keep the Pallas wrapper's shape rule: ``S`` must be a multiple
+of ``min(bs, S)``, although the kernel's tiles do not follow ``bs``.  Any
+other dtype on a CUDA tensor raises ``ValueError``, and a failed build or
+launch raises: there is no fallback.  Each call adds one to
+``decode_attention_bhsd.launches``.
 """
 from __future__ import annotations
 
 import torch
 
-from .ref import decode_attention_ref
+from .ref import decode_attention_ref, decode_split_plan
 
 __all__ = [
-    "SPLIT",
+    "GENERIC_SPLIT",
     "SUPPORTED_DTYPES",
+    "SUPPORTED_HD",
     "check_kernel_operands",
     "decode_attention_bhsd",
     "decode_attention_torch",
     "reset_launches",
+    "uses_tiled_instance",
+    "workspace_floats",
 ]
 
-SPLIT = 256  # keys a block of the kernel's first pass scores
+GENERIC_SPLIT = 256  # keys a block of the float32 / generic instance's first pass scores
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+SUPPORTED_HD = (16, 32, 48, 64, 128, 160, 256)  # head dims of the bf16 tiled instance
 MAX_HD = 4096
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -74,6 +94,19 @@ def check_kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q, k, v, valid on {q.device}, {k.device}, {v.device}, {valid.device}")
 
 
+def uses_tiled_instance(dtype: torch.dtype, hd: int) -> bool:
+    """Whether the kernel runs the bf16 tiled instance (else the generic one)."""
+    return dtype == torch.bfloat16 and hd in SUPPORTED_HD
+
+
+def workspace_floats(bh: int, s: int, hd: int, dtype: torch.dtype) -> int:
+    """4-byte words of the workspace a launch needs: ``hd + 2`` floats per
+    (row, split), and for the tiled instance one int32 counter per row."""
+    if uses_tiled_instance(dtype, hd):
+        return bh * decode_split_plan(bh, s)[1] * (hd + 2) + bh
+    return bh * -(-s // GENERIC_SPLIT) * (hd + 2)
+
+
 def decode_attention_bhsd(
     q: torch.Tensor,  # (BH, 1, hd)
     k: torch.Tensor,  # (BH, S, hd)
@@ -97,14 +130,23 @@ def decode_attention_bhsd(
     out = torch.empty_like(q)
     if bh == 0:
         return out
-    nsplit = -(-s // SPLIT)
-    ws = torch.empty(bh * nsplit * (hd + 2), dtype=torch.float32, device=q.device)
+    ws = torch.empty(workspace_floats(bh, s, hd, q.dtype), dtype=torch.float32, device=q.device)
+    lib = library("decode_attention")
     with torch.cuda.device(q.device):
-        rc = library("decode_attention").repro_decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), bh, s, hd, SPLIT, _DTYPE_CODE[q.dtype], float(scale),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if uses_tiled_instance(q.dtype, hd):
+            if any(x.data_ptr() % 16 for x in (q, k, v, out)):
+                raise ValueError("the bf16 decode kernel takes 16-byte aligned q, k, v")
+            rc = lib.repro_decode_attention_tiled(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), bh, s, hd, decode_split_plan(bh, s)[1], float(scale), stream,
+            )
+        else:
+            rc = lib.repro_decode_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), bh, s, hd, GENERIC_SPLIT, _DTYPE_CODE[q.dtype], float(scale),
+                stream,
+            )
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")
     decode_attention_bhsd.launches += 1

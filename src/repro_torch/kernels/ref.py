@@ -4,13 +4,15 @@ Each oracle is the mathematically direct formulation (full attention
 matrices, the per-step SSM recurrence) with float32 accumulation, so the
 tiled kernels are held against code that shares nothing with them.
 
-``flash_attention_tiled_ref`` and ``ssd_scan_tiled_ref`` are the exceptions:
-they repeat the arithmetic of K3's bf16 tensor-core instance (its tiles, its
-live-tile walk, its online softmax and its bf16 hi + lo terms of P) and of
-K5's three passes (chunk states, state passing, 64-row tiles of the chunk
-scan, bf16 hi + lo terms of every float32 operand), so that the kernels can
-be held to them far more tightly than to the oracles.  Only tests and
-``chip_smoke.py`` call them.
+``flash_attention_tiled_ref``, ``decode_attention_tiled_ref`` and
+``ssd_scan_tiled_ref`` are the exceptions: they repeat the arithmetic of
+K3's bf16 tensor-core instance (its tiles, its live-tile walk, its online
+softmax and its bf16 hi + lo terms of P), of K4's bf16 instance (its
+64-key tiles, the skip of tiles with no valid key, its interleaved splits
+and their merge in split order) and of K5's three passes (chunk states,
+state passing, 64-row tiles of the chunk scan, bf16 hi + lo terms of every
+float32 operand), so that the kernels can be held to them far more tightly
+than to the oracles.  Only tests and ``chip_smoke.py`` call them.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ NEG_INF = -2.0e38
 LOG2E = math.log2(math.e)
 FLASH_BQ = 64  # query rows of one K3 block
 SSD_TILE = 64  # rows of a query or key tile of K5's chunk scan
+DECODE_TILE = 64  # keys of one tile of K4's bf16 instance
+DECODE_BLOCKS = 132  # blocks a K4 launch aims at: one for each of an H100's 132 SMs
+DECODE_MAX_SPLIT_TILES = 1024  # tiles one K4 block may own (a mask word each in shared memory)
 
 
 def flash_tile_plan(hd: int) -> tuple[int, int]:
@@ -128,6 +133,81 @@ def decode_attention_ref(
                          torch.full((), NEG_INF, dtype=f32, device=q.device))
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bts,bsd->btd", w, v.to(f32)).to(q.dtype)
+
+
+def decode_split_plan(bh: int, s: int) -> tuple[int, int]:
+    """(tiles, splits) of one row of K4's bf16 instance: ``S`` cut into
+    tiles of ``DECODE_TILE`` keys (the last one ragged), and as many splits
+    as fill ``DECODE_BLOCKS`` blocks over ``bh`` rows, at least one, at most
+    one a tile, and enough that no split owns more than
+    ``DECODE_MAX_SPLIT_TILES`` tiles.  Split ``sp`` owns tiles ``sp, sp +
+    nsplit, ...``, so a valid run of any layout spreads over the splits."""
+    ntiles = -(-s // DECODE_TILE)
+    nsplit = max(1, DECODE_BLOCKS // max(bh, 1), -(-ntiles // DECODE_MAX_SPLIT_TILES))
+    return ntiles, min(nsplit, ntiles)
+
+
+def decode_attention_tiled_ref(
+    q: torch.Tensor,  # (BH, 1, hd)
+    k: torch.Tensor,  # (BH, S, hd)
+    v: torch.Tensor,
+    valid: torch.Tensor,  # (BH, S) int32
+    *,
+    scale: float,
+    nsplit: int | None = None,
+) -> torch.Tensor:
+    """K4's bf16 instance in plain PyTorch, float32 throughout.
+
+    Each split (``decode_split_plan``, or ``nsplit`` given) walks the tiles
+    it owns in ascending order and skips, for each row, a tile with no valid
+    key: its k and v enter nothing, so non-finite values there cannot reach
+    the output.  In a tile it reads, a masked key is selected out of the
+    scores, the weights and v (never multiplied by a zero weight).  The
+    split keeps an online softmax (m, l, acc) from ``m = NEG_INF, l = 0``;
+    a split that read nothing merges with weight ``exp(m - M) l = 0``.  The
+    merge takes the splits in order: ``M = max m``, ``out = sum e^(m - M)
+    acc / sum e^(m - M) l``.  A row with no valid key at all (every split
+    empty) is the mean of v over all ``S`` slots, as the oracle's uniform
+    softmax gives.  Output in q's dtype."""
+    bh, s, hd = k.shape
+    f32, dev = torch.float32, q.device
+    ntiles, plan = decode_split_plan(bh, s)
+    nsplit = plan if nsplit is None else nsplit
+    if not 1 <= nsplit <= ntiles:
+        raise ValueError(f"nsplit={nsplit} outside [1, {ntiles}]")
+    qf = q[:, 0].to(f32)
+    ok = valid > 0
+    neg = torch.full((), NEG_INF, dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    parts = []
+    for sp in range(nsplit):
+        m = torch.full((bh,), NEG_INF, dtype=f32, device=dev)
+        l = torch.zeros(bh, dtype=f32, device=dev)
+        acc = torch.zeros((bh, hd), dtype=f32, device=dev)
+        for t in range(sp, ntiles, nsplit):
+            keys = slice(t * DECODE_TILE, min((t + 1) * DECODE_TILE, s))
+            okt = ok[:, keys]
+            read = okt.any(-1)
+            sc = torch.where(okt, torch.einsum("bd,bnd->bn", qf, k[:, keys].to(f32)) * scale, neg)
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(okt, torch.exp(sc - m_new[:, None]), zero)
+            vt = torch.where(okt[..., None], v[:, keys].to(f32), zero)
+            l = torch.where(read, l * alpha + p.sum(-1), l)
+            acc = torch.where(read[:, None], acc * alpha[:, None] + torch.einsum("bn,bnd->bd", p, vt),
+                              acc)
+            m = torch.where(read, m_new, m)
+        parts.append((m, l, acc))
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = torch.zeros((bh, hd), dtype=f32, device=dev)
+    den = torch.zeros(bh, dtype=f32, device=dev)
+    for m, l, acc in parts:
+        w = torch.exp(m - big)
+        num = num + w[:, None] * acc
+        den = den + w * l
+    out = num / den.clamp_min(1e-30)[:, None]
+    out = torch.where((den == 0)[:, None], v.to(f32).mean(1), out)
+    return out[:, None].to(q.dtype)
 
 
 def ssd_scan_ref(

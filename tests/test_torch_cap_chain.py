@@ -148,3 +148,31 @@ def test_kernels_match_plain_on_card(cuda_device, n):
     counts = tcc.nic_flow_counts(nodes, 97)
     assert tcc.nic_flow_counts.launches == 1
     assert torch.equal(counts, tcc.nic_flow_counts_torch(nodes, 97))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case,n", [("one_nic", 100_000), ("sorted", 100_001), ("random", 100_000), ("random", 999),
+               ("random", 1), ("offset_view", 4097)],
+)
+def test_nic_flow_counts_kernel_equals_bincount(cuda_device, case, n):
+    """K2's warp-aggregated kernel: every flow on one NIC (every lane of a
+    warp in one match group), sorted ids, random ids, an odd n, n = 1, and an
+    array that starts 8 bytes past a 16-byte boundary (the peeled head)."""
+    rng = np.random.default_rng(n)
+    n_nodes = 1000
+    if case == "one_nic":
+        ids = np.full(n, 7)
+    elif case == "sorted":
+        ids = np.sort(rng.integers(0, n_nodes, n))
+    else:
+        ids = rng.integers(0, n_nodes, n + (case == "offset_view"))
+    nodes = torch.from_numpy(ids).to(cuda_device)
+    if case == "offset_view":
+        nodes = nodes[1:]
+        assert nodes.data_ptr() % 16 == 8
+    tcc.reset_launches()
+    got = tcc.nic_flow_counts(nodes, n_nodes)
+    torch.cuda.synchronize()
+    assert tcc.nic_flow_counts.launches == 1
+    assert torch.equal(got, torch.bincount(nodes, minlength=n_nodes))

@@ -156,3 +156,63 @@ def test_kernel_matches_plain_on_card(cuda_device, b, h, s, hd, n_valid, dtype):
     tol = _tol(dtype)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _card_operands(device, bh: int, s: int, hd: int, dtype: str, seed: int):
+    _, (tq, tk, tv) = _qkv(s, seed=seed, dtype=dtype, b=1, h=bh, hd=hd)
+    return [x.reshape(bh, -1, hd).to(device) for x in (tq, tk, tv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hd", tda.SUPPORTED_HD)
+@pytest.mark.parametrize("kind", ["prefix", "ring", "scattered", "one_key_tiles", "no_valid_rows"])
+def test_every_instance_matches_plain_on_card(cuda_device, kind, hd, dtype):
+    """Every templated hd of the bf16 tiled instance (and the float32
+    instance at the same hd) on the masks of ``test_torch_decode_tiles``,
+    against the plain version at ``_tol``; bf16 also against
+    ``decode_attention_tiled_ref`` at 1e-3 + 1e-2 |want|."""
+    from test_torch_decode_tiles import _masks  # (that module imports this one)
+
+    q, k, v = _card_operands(cuda_device, 8, 1024, hd, dtype, seed=hd)
+    valid = torch.from_numpy(_masks(kind, np.random.default_rng(hd))).to(cuda_device)
+    tda.reset_launches()
+    got = tda.decode_attention_bhsd(q, k, v, valid, scale=hd**-0.5)
+    torch.cuda.synchronize()
+    assert tda.decode_attention_bhsd.launches == 1
+    assert torch.isfinite(got).all()
+    want = tda.decode_attention_torch(q, k, v, valid, scale=hd**-0.5)
+    tol = _tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == "bfloat16":
+        tiled = tref.decode_attention_tiled_ref(q, k, v, valid, scale=hd**-0.5)
+        torch.testing.assert_close(got.float(), tiled.float(), atol=1e-3, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", tda.SUPPORTED_HD)
+def test_fully_masked_tiles_are_never_read_on_card(cuda_device, hd):
+    """NaN in k and v of every 64-key tile with no valid key, in rows that
+    have one: the bf16 kernel's output is finite and equals the plain
+    version on the same operands with those slots zeroed."""
+    bh, s = 128, 1024
+    q, k, v = _card_operands(cuda_device, bh, s, hd, "bfloat16", seed=3 * hd)
+    rng = np.random.default_rng(hd)
+    valid = np.zeros((bh, s), np.int32)
+    for r in range(bh):
+        n = int(rng.integers(1, s))
+        valid[r, (int(rng.integers(0, s)) + np.arange(n)) % s] = 1  # a ring run
+    valid[::7] = rng.random((len(valid[::7]), s)) < 0.05  # scattered rows
+    valid[::7, 0] = 1
+    valid = torch.from_numpy(valid).to(cuda_device)
+    dead = (~valid.view(bh, s // 64, 64).bool().any(-1)).repeat_interleave(64, dim=1)
+    assert dead.any()
+    k_nan, v_nan = k.clone(), v.clone()
+    k_nan[dead], v_nan[dead] = float("nan"), float("nan")
+    got = tda.decode_attention_bhsd(q, k_nan, v_nan, valid, scale=hd**-0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    k0, v0 = k.clone(), v.clone()
+    k0[dead], v0[dead] = 0, 0
+    want = tda.decode_attention_torch(q, k0, v0, valid, scale=hd**-0.5)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
