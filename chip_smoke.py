@@ -23,6 +23,12 @@ drives the port's two paths:
   the production-fleet tier (100,000 VMs, 25 x 40,000 containers), checked
   exactly against the values ``BENCH_scale.json`` records, every wide
   front through the engine's packed K1 route (one pinned copy each way);
+  then the multi-tenant trace replay (``MultiTenantReplay``) on
+  ``vector_torch``, ``cuda``: the two 3-tenant replay goldens (exclusive
+  TickStats, serving responses) at scalar cutoffs 64 and 0, and
+  ``giga_replay_config(0)`` (32 tenants, 100,000 VMs, serving + blocks + a
+  failover), every field equal to a same-machine numpy ``vector`` run and
+  to ``BENCH_scale.json``'s ``giga_replay`` counts;
 * serving: ``ServeEngine`` at full width, random float32 master weights
   drawn on the card from a seed, answering 8 requests of 512 prompt tokens
   with 16 new tokens each, 4 to a batch:
@@ -53,6 +59,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import subprocess
@@ -70,6 +77,20 @@ GIGA_FRONTS = 5949
 GIGA_FLOWS = 5_361_821
 GIGA_MEAN_WIDTH = GIGA_FLOWS // GIGA_FRONTS  # 901
 SMALL_SHA = "bb5965a1fa885edd0aaf968dfec9bad59941edf5c13a367d869ed2eea7954c82"
+
+# The trace replay's goldens, copied from the JAX package's tests:
+# GOLDEN_EXCLUSIVE_3T (tests/test_placement.py:39), the SHA-256 of the
+# per-tenant TickStats streams of 3 tenants x 250 VMs x 4 min under exclusive
+# placement; GOLDEN_SERVING_3T (tests/test_request_serving.py:63), the SHA-256
+# of the per-tenant response streams of the 3-min serving replay.
+GOLDEN_EXCLUSIVE_3T = "dfa29f6c603ea308f7675d91fbbb1b0687b14c9461c12c55288170041cc53e3a"
+GOLDEN_SERVING_3T = "70edf3161d5c485b89f81d5a5bf0d8a239e48c5495c131703f9782c77f5f5ea3"
+# giga_replay's counts in BENCH_scale.json, each compared exactly as stored
+# (the file holds every one at full float precision, none rounded)
+REPLAY_KEYS = ("n_tenants", "vm_pool_size", "duration_s", "serving", "blocks", "requests",
+               "completed", "cold_starts", "failovers", "prov_makespan_s",
+               "peak_registry_egress_gbps", "vm_hours", "worst_p99_response_s",
+               "peak_nic_utilization")
 
 # H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 (non-tensor) peaks,
 # INT32 peak (64 INT32 lanes per SM, half the FP32 rate), dense BF16
@@ -286,8 +307,9 @@ def patched(module, name: str, make):
         setattr(module, name, orig)
 
 
-def record_engine(on_engine):
-    """Hand every engine ``run_scale`` builds to ``on_engine`` before it runs."""
+def record_engine(on_engine, module=None):
+    """Hand every engine that ``module`` (``run_scale``'s by default) builds
+    to ``on_engine`` before it runs."""
     from repro_torch.sim import scale
 
     def make_and_record(make):
@@ -297,7 +319,7 @@ def record_engine(on_engine):
             return sim
         return run
 
-    return patched(scale, "make_sim", make_and_record)
+    return patched(module or scale, "make_sim", make_and_record)
 
 
 # ----------------------------------------------------------------------
@@ -691,6 +713,154 @@ def phase_giga_tier(bench: dict) -> dict:
                vector_build_s=vec.build_s, vector_events_per_s=vec.events_per_s)
     emit("giga_tier", **out)
     return out | {"fronts": fronts, "k2_nodes_tensor": nodes}
+
+
+def replay_3t_cfg(kind: str, cutoff: int):
+    """The configs of the two replay goldens (``_three_tenant_cfg("exclusive")``
+    and ``_serving_3t_cfg()`` in the JAX package's tests), on ``vector_torch``
+    on the card."""
+    from repro_torch.sim import (MultiTenantConfig, ServingConfig, TenantConfig, WaveConfig,
+                                 constant_trace, diurnal_trace, synthetic_gaming_trace)
+
+    dur = (4 if kind == "exclusive" else 3) * 60
+    return MultiTenantConfig(
+        tenants=[TenantConfig("gaming", synthetic_gaming_trace()[600:600 + dur], seed=1),
+                 TenantConfig("diurnal", diurnal_trace(duration_s=dur, phase_s=300), seed=2),
+                 TenantConfig("steady", constant_trace(duration_s=dur), seed=3)],
+        system="faasnet", vm_pool_size=250, idle_reclaim_s=120.0,
+        placement="exclusive" if kind == "exclusive" else "shared", check_partition=True,
+        serving=ServingConfig() if kind == "serving" else None,
+        wave=WaveConfig(engine="vector_torch", device="cuda", vector_scalar_cutoff=cutoff))
+
+
+def stream_hash(res) -> str:
+    """SHA-256 of the per-tenant TickStats streams (GOLDEN_EXCLUSIVE_3T's)."""
+    lines = [f"{fid} {ts!r}" for fid in sorted(res.timelines) for ts in res.timelines[fid]]
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()
+
+
+def response_hash(rep) -> str:
+    """SHA-256 of the per-tenant response streams (GOLDEN_SERVING_3T's)."""
+    lines = [f"{ts.cfg.function_id} {t!r} {lat!r}" for ts in rep.tenants for t, lat in ts.responses]
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()
+
+
+def run_replay(cfg):
+    """One ``MultiTenantReplay`` run: (replay, result, wall s, K1 launches)."""
+    import torch
+
+    from repro_torch.kernels import cap_chain as cc
+    from repro_torch.sim import MultiTenantReplay
+
+    cc.reset_launches()
+    t0 = time.perf_counter()
+    rep = MultiTenantReplay(cfg)
+    res = rep.run()
+    torch.cuda.synchronize()
+    return rep, res, time.perf_counter() - t0, cc.cap_chain_rates.launches
+
+
+def phase_replay_goldens() -> dict:
+    out = {}
+    for kind, golden in (("exclusive", GOLDEN_EXCLUSIVE_3T), ("serving", GOLDEN_SERVING_3T)):
+        for cutoff in (64, 0):
+            rep, res, wall, k1 = run_replay(replay_3t_cfg(kind, cutoff))
+            digest = stream_hash(res) if kind == "exclusive" else response_hash(rep)
+            check(digest == golden, f"{kind} replay golden at cutoff {cutoff}: {digest}")
+            ds = rep.sim.dispatch_stats
+            check(k1 == ds["fronts_torch"] == ds["fronts_vector"], f"{kind} cutoff {cutoff}: {k1} vs {ds}")
+            if cutoff == 0:
+                check(k1 > 0 and ds["fronts_scalar"] == 0, f"{kind} cutoff 0: {k1} vs {ds}")
+            out[f"{kind}_{cutoff}"] = dict(wall_s=wall, k1_launches=k1, fronts_scalar=ds["fronts_scalar"],
+                                           flows_torch=ds["flows_torch"])
+    emit("replay_goldens", **out)
+    return out
+
+
+def replay_counts(cfg, res) -> dict:
+    """``giga_replay``'s keys of ``BENCH_scale.json``, computed as the JAX
+    package's ``benchmarks/bench_scale_1000.py`` computes them."""
+    tenants = res.per_tenant.values()
+    return dict(n_tenants=len(cfg.tenants), vm_pool_size=cfg.vm_pool_size, duration_s=cfg.duration_s(),
+                serving=cfg.serving is not None, blocks=cfg.images is not None,
+                requests=sum(t.requests for t in tenants), completed=sum(t.completed for t in tenants),
+                cold_starts=res.cold_starts, failovers=res.failovers, prov_makespan_s=res.prov_makespan_s,
+                peak_registry_egress_gbps=res.peak_registry_egress * 8 / 1e9, vm_hours=res.vm_hours(),
+                worst_p99_response_s=max(t.p99_response_s for t in tenants),
+                peak_nic_utilization=res.peak_nic_utilization)
+
+
+def phase_giga_replay(bench: dict) -> dict:
+    import dataclasses
+
+    from repro_torch.sim import multi_tenant
+    from repro_torch.sim.scale import giga_replay_config
+
+    def run(engine: str) -> dict:
+        """One giga replay on ``engine``, with the host seconds its wide
+        fronts spent in ``_front_rates`` (K1's route on ``vector_torch``,
+        numpy's on ``vector``)."""
+        engines, front_s = [], [0.0]
+
+        def on_engine(sim):
+            engines.append(sim)
+            rate = sim._front_rates
+
+            def timed(fids, src, dst):
+                t0 = time.perf_counter()
+                out = rate(fids, src, dst)
+                front_s[0] += time.perf_counter() - t0
+                return out
+
+            sim._front_rates = timed
+
+        cfg = giga_replay_config(0, engine=engine)
+        gc.collect()  # no run pays for the garbage of the phases and runs before it
+        with record_engine(on_engine, multi_tenant):
+            rep, res, wall, k1 = run_replay(cfg)
+        (sim,) = engines
+        check(sim is rep.sim, "the replay's engine was not recorded")
+        # keep the streams, not the replay: the next run should not find
+        # this one's 100,000-VM state alive
+        streams = [(ts.cfg.function_id, ts.timeline, ts.responses, ts.prov_latencies)
+                   for ts in rep.tenants]
+        return dict(cfg=cfg, res=res, streams=streams, wall=wall, k1=k1, front_s=front_s[0],
+                    ds=dict(sim.dispatch_stats), engine=type(sim).__name__)
+
+    default = giga_replay_config(0).wave
+    check(default.engine == "vector_torch" and default.device == "cuda", "giga replay defaults")
+    # in turns (card, numpy, numpy, card): the card engine's cost or gain end
+    # to end, and more exact comparisons
+    card, vec, vec2, card2 = (run(e) for e in ("vector_torch", "vector", "vector", "vector_torch"))
+    k1, ds = card["k1"], card["ds"]
+    check(card["engine"] == "VectorTorchFlowSim" and vec["engine"] == "VectorFlowSim", "replay engines")
+    check(k1 > 0, "K1 never launched in the giga replay")
+    for c in (card, card2):
+        check(c["k1"] == c["ds"]["fronts_torch"] == c["ds"]["fronts_vector"] == k1,
+              f"giga replay launches {c['k1']} vs {c['ds']}")
+    for v in (vec, vec2):
+        check(v["k1"] == 0, f"the numpy engine launched K1 {v['k1']} times")
+    # every field of the results, their timelines and response streams
+    res = card["res"]
+    for other in (vec, vec2, card2):
+        for f in dataclasses.fields(res):
+            check(getattr(res, f.name) == getattr(other["res"], f.name),
+                  f"giga replay {f.name}: {other['engine']} run differs")
+        for a, b in zip(card["streams"], other["streams"], strict=True):
+            check(a == b, f"{a[0]} streams: {other['engine']} run differs")
+    got = replay_counts(card["cfg"], res)
+    for key in REPLAY_KEYS:
+        check(got[key] == bench[key], f"giga replay {key} {got[key]!r} vs BENCH_scale.json {bench[key]!r}")
+    base = {k: v for k, v in ds.items() if k not in ("fronts_torch", "flows_torch")}
+    check(base == vec["ds"], "giga replay dispatch_stats vs numpy")
+    walls, vwalls = [card["wall"], card2["wall"]], [vec["wall"], vec2["wall"]]
+    out = dict(wall_s=card["wall"], vector_wall_s=vec["wall"], walls_abba_s=walls,
+               vector_walls_abba_s=vwalls, wall_minus_vector_wall_s=(sum(walls) - sum(vwalls)) / 2,
+               front_s_abba=[card["front_s"], card2["front_s"]],
+               vector_front_s_abba=[vec["front_s"], vec2["front_s"]],
+               k1_launches=k1, dispatch_stats=ds, counts=got, equal_to_bench=list(REPLAY_KEYS))
+    emit("giga_replay", **out)
+    return out
 
 
 def time_k1(ops) -> dict:
@@ -1715,6 +1885,8 @@ def main() -> int:
     k5_check = timed(phase_k5_vs_plain)
     paper = timed(phase_paper_tier, bench)
     giga = timed(phase_giga_tier, bench["giga_burst"])
+    goldens = timed(phase_replay_goldens)
+    replay = timed(phase_giga_replay, bench["giga_replay"])
     serve = timed(phase_serve_full_width)
     mamba = timed(phase_serve_mamba2_130m)
     granite = timed(phase_serve_granite_moe_1b)
@@ -1733,7 +1905,9 @@ def main() -> int:
          "bound_ms": mean["bound_ms"], "bound_by": mean["bound_by"], "library_ms": None,
          "on_main_path": True, "n": mean["n"], "front_ms": mean["front_ms"],
          "wrapper_ms": mean["wrapper_ms"], "widest": times["k1"]["widest"],
-         "numpy_ms": mean["numpy_ms"], "paper_tier_launches": paper["k1_launches"]},
+         "numpy_ms": mean["numpy_ms"], "paper_tier_launches": paper["k1_launches"],
+         "replay_launches": replay["k1_launches"],
+         "replay_golden_launches": {k: v["k1_launches"] for k, v in goldens.items()}},
         {"name": "nic_flow_counts", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/cap_chain.py:137",
          "launches": giga["k2_launches"], "max_abs_err": 0.0,
@@ -1787,6 +1961,7 @@ def main() -> int:
     for k in kernels:
         check(not k["on_main_path"] or k["launches"] > 0, f"{k['name']} never launched on the main path")
         check(k.get("served_operand_launches", 1) > 0, f"{k['name']} never launched on served operands")
+        check(k.get("replay_launches", 1) > 0, f"{k['name']} never launched in the giga replay")
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=phase_s)
     print(json.dumps({"kernels": kernels}))
     print(smi)

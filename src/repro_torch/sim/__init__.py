@@ -17,14 +17,34 @@ from .cluster import (
     startup_timeline,
 )
 from .engine import ENGINES, GBPS, FlowSim, NICConfig, SimConfig, make_sim
+from .multi_tenant import (
+    PLACEMENTS,
+    MultiTenantConfig,
+    MultiTenantReplay,
+    MultiTenantResult,
+    ServingConfig,
+    TenantConfig,
+    TenantResult,
+    run_multi_tenant,
+)
+from .reference import ReferenceFlowSim
 from .scale import (
     ScaleConfig,
     ScaleResult,
     giga_burst_config,
     mega_burst_config,
+    multi_tenant_config,
     run_scale,
+    serving_config,
 )
 from .vector_engine import VectorFlowSim, VectorTorchFlowSim
+from .traces import (
+    constant_trace,
+    diurnal_trace,
+    iot_trace,
+    synthetic_gaming_trace,
+)
+from .workload import ReplayConfig, TickStats, TraceReplay
 
 __all__ = [
     "RECLAIM_POLICIES",
@@ -35,6 +55,7 @@ __all__ = [
     "ShardResolver",
     "SYSTEMS",
     "BLOCK_SYSTEMS",
+    "PLACEMENTS",
     "WaveConfig",
     "block_wave",
     "provision_wave",
@@ -48,9 +69,26 @@ __all__ = [
     "NICConfig",
     "SimConfig",
     "make_sim",
+    "MultiTenantConfig",
+    "MultiTenantReplay",
+    "MultiTenantResult",
+    "ServingConfig",
+    "TenantConfig",
+    "TenantResult",
+    "run_multi_tenant",
+    "ReferenceFlowSim",
     "ScaleConfig",
     "ScaleResult",
     "giga_burst_config",
     "mega_burst_config",
+    "multi_tenant_config",
     "run_scale",
+    "serving_config",
+    "constant_trace",
+    "diurnal_trace",
+    "iot_trace",
+    "synthetic_gaming_trace",
+    "ReplayConfig",
+    "TickStats",
+    "TraceReplay",
 ]

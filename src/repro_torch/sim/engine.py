@@ -43,7 +43,9 @@ previously quadratic run into an ~O(F log F) one.
 
 Determinism: events are (time, seq) ordered and every internal registry is
 keyed by a densely-assigned flow id (``fid``), so iteration order — and
-therefore the event log — is bit-reproducible across runs.
+therefore the event log — is bit-reproducible across runs.  The original
+full-recompute engine survives as :class:`repro_torch.sim.reference.ReferenceFlowSim`
+and the two are differential-tested in ``tests/test_torch_reference.py``.
 """
 from __future__ import annotations
 
@@ -67,13 +69,15 @@ __all__ = [
 ]
 
 #: Engine backends selectable via :attr:`SimConfig.engine`.  They form an
-#: oracle chain — ``incremental`` (per-NIC dirty sets) polices ``vector``
-#: (flat numpy arrays, wide-front recompute), which in turn polices
+#: oracle chain — ``reference`` (full recompute, trivially correct) polices
+#: ``incremental`` (per-NIC dirty sets), which polices ``vector`` (flat
+#: numpy arrays, wide-front recompute), which in turn polices
 #: ``vector_torch`` (the same engine with the CUDA cap-chain kernel from
 #: ``repro_torch.kernels.cap_chain`` on its wide fronts) — all
-#: differential-tested to produce bit-identical event logs
-#: (``tests/test_torch_vector_engine.py``).
-ENGINES = ("incremental", "vector", "vector_torch")
+#: differential-tested to produce bit-identical event logs and rates within
+#: 1e-9 (``tests/test_torch_vector_engine.py``,
+#: ``tests/test_torch_reference.py``).
+ENGINES = ("incremental", "vector", "vector_torch", "reference")
 
 
 @dataclass
@@ -103,8 +107,8 @@ class SimConfig:
     registry: Optional[RegistrySpec] = None
     # Engine backend: "vector_torch" (default; the vector engine with its
     # wide fronts on ``device``), "vector" (flat numpy arrays, the 100k-VM
-    # backend) or "incremental".  All three produce identical results; see
-    # ``make_sim``.
+    # backend), "incremental" or "reference" (full-recompute oracle).  All
+    # produce identical results; see ``make_sim``.
     engine: str = "vector_torch"
     # Large fleets can drop the per-event text log (the giga-burst tier
     # would otherwise materialize millions of trace tuples).
@@ -199,9 +203,9 @@ def make_sim(cfg: SimConfig | None = None, *, record_rates: bool = False):
     engine with the cap-chain kernel on its wide fronts, on ``cfg.device``;
     "vector" selects the array-based
     :class:`repro_torch.sim.vector_engine.VectorFlowSim` it subclasses and
-    "incremental" the per-event :class:`FlowSim`.  All backends share
-    ``SimConfig`` and the public API, and produce identical results on the
-    same inputs.
+    "incremental" the per-event :class:`FlowSim` and "reference" the
+    full-recompute oracle.  All backends share ``SimConfig`` and the public
+    API, and produce identical results on the same inputs.
     """
     cfg = cfg or SimConfig()
     if cfg.engine == "incremental":
@@ -214,6 +218,10 @@ def make_sim(cfg: SimConfig | None = None, *, record_rates: bool = False):
         from .vector_engine import VectorTorchFlowSim
 
         return VectorTorchFlowSim(cfg, record_rates=record_rates)
+    if cfg.engine == "reference":
+        from .reference import ReferenceFlowSim
+
+        return ReferenceFlowSim(cfg, record_rates=record_rates)
     raise ValueError(
         f"unknown engine {cfg.engine!r}; expected one of {ENGINES}"
     )

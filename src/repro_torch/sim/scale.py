@@ -28,7 +28,7 @@ import time
 from dataclasses import dataclass, field
 
 from repro_torch.core import FTManager, VMInfo
-from repro_torch.core.registry import ShardResolver
+from repro_torch.core.registry import RegistrySpec, ShardResolver
 from repro_torch.core.topology import faasnet_block_plan, faasnet_plan
 
 from .cluster import WaveConfig
@@ -102,6 +102,164 @@ def giga_burst_config(
         max_functions_per_vm=40,
         wave=WaveConfig(engine=engine, record_trace=False),
     )
+
+
+def multi_tenant_config(
+    seed: int = 0,
+    *,
+    n_tenants: int = 8,
+    vm_pool_size: int = 2000,
+    minutes: int = 25,
+    scale: float = 0.25,
+    system: str = "faasnet",
+    failover_at: int | None = 12 * 60,
+    check_partition: bool = False,
+    registry: "RegistrySpec | None" = None,
+    placement: str = "shared",
+    ft_aware_placement: bool = True,
+    reclaim: str = "fixed",
+) -> "MultiTenantConfig":
+    """The trace-driven companion of :func:`mega_burst_config` (§4.2 waves).
+
+    N tenants cycle through the four trace shapes — IoT, synthetic gaming,
+    diurnal (phase-staggered so peaks only partially overlap) and constant
+    background — all contending for one 2000-VM pool, one registry and one
+    FlowSim, with a scheduler failover mid-wave by default.  Each trace
+    shape carries a distinct per-instance memory requirement (gaming 2048 MB
+    … constant 256 MB), so under ``placement="shared"`` co-location on the
+    4 GB VMs is genuinely memory-constrained; ``placement="exclusive"``
+    reproduces the legacy one-VM-one-tenant leasing.  The returned config
+    drives :class:`repro_torch.sim.multi_tenant.MultiTenantReplay`;
+    ``examples/torch_trace_replay.py --multi`` is its CLI twin.  The wave
+    keeps the port's default engine, ``vector_torch`` on ``"cuda"``; set
+    ``cfg.wave.device = "cpu"`` to run the cap chain's plain version.
+    """
+    from .multi_tenant import MultiTenantConfig, TenantConfig
+    from .traces import (
+        constant_trace,
+        diurnal_trace,
+        iot_trace,
+        synthetic_gaming_trace,
+    )
+
+    duration = minutes * 60
+    tenants: list[TenantConfig] = []
+    for i in range(n_tenants):
+        kind = i % 4
+        if kind == 0:
+            trace = iot_trace(scale=scale)[:duration]
+            name, mem_mb = "iot", 512
+        elif kind == 1:
+            trace = synthetic_gaming_trace(scale=4 * scale)[:duration]
+            name, mem_mb = "gaming", 2048
+        elif kind == 2:
+            trace = diurnal_trace(
+                duration_s=duration, phase_s=150 * i, scale=4 * scale
+            )
+            name, mem_mb = "diurnal", 1024
+        else:
+            trace = constant_trace(duration_s=duration, scale=4 * scale)
+            name, mem_mb = "constant", 256
+        tenants.append(
+            TenantConfig(
+                function_id=f"{name}{i}",
+                trace=trace,
+                seed=seed * 1000 + i,  # decorrelated arrival jitter per tenant
+                mem_mb=mem_mb,
+            )
+        )
+    return MultiTenantConfig(
+        tenants=tenants,
+        system=system,
+        vm_pool_size=vm_pool_size,
+        idle_reclaim_s=7 * 60.0,
+        failover_at=failover_at,
+        check_partition=check_partition,
+        registry=registry,
+        placement=placement,
+        ft_aware_placement=ft_aware_placement,
+        reclaim=reclaim,
+    )
+
+
+def serving_config(
+    seed: int = 0,
+    *,
+    herd_control: bool = True,
+    cpu_slots: int = 2,
+    drain_budget_s: float = 15.0,
+    rate_window_s: int = 30,
+    **kwargs,
+) -> "MultiTenantConfig":
+    """The request-serving companion of :func:`multi_tenant_config`.
+
+    Same 8-tenant diurnal mix against the shared 2000-VM pool, but with a
+    :class:`repro_torch.sim.multi_tenant.ServingConfig` attached: arrivals are
+    stamped at sub-second offsets, the per-function FIFO queues drain
+    against instance free times (end-to-end p50/p99 response is the
+    headline metric instead of provisioning makespan), co-located requests
+    contend for per-VM CPU slots and scale-out runs in herd-controlled
+    provisioning waves.  ``herd_control=False`` keeps sub-tick dispatch but
+    reverts admission to the legacy one-reservation-per-deficit-unit rule —
+    the comparison baseline of the serving benchmark.  Remaining ``kwargs``
+    pass through to
+    :func:`multi_tenant_config`.
+    """
+    from .multi_tenant import ServingConfig
+
+    cfg = multi_tenant_config(seed, **kwargs)
+    cfg.serving = ServingConfig(
+        cpu_slots=cpu_slots,
+        herd_control=herd_control,
+        drain_budget_s=drain_budget_s,
+        rate_window_s=rate_window_s,
+    )
+    return cfg
+
+
+def giga_replay_config(
+    seed: int = 0,
+    *,
+    n_tenants: int = 32,
+    minutes: int = 8,
+    scale: float = 0.5,
+    engine: str = "vector_torch",
+) -> "MultiTenantConfig":
+    """Full trace replay at the giga tier: serving + blocks, 100k-VM pool.
+
+    The end-to-end companion of :func:`giga_burst_config`: where the burst
+    tier stresses raw flow-event throughput on isolated waves, this drives
+    every subsystem at once through one shared vector engine —
+    32 tenants of sub-tick request serving (CPU slots, herd-controlled
+    scale-out), block-level on-demand provisioning against four shared base
+    images, idle reclaim and a mid-run scheduler failover, all against the
+    100k-VM fleet.  Exists to prove the wide-front vector engine under the
+    replay loop's interleaved ``run(until=...)`` stepping rather than one
+    monolithic ``run()``.  The JAX package records it as ``giga_replay`` in
+    ``BENCH_scale.json``; ``chip_smoke.py``'s ``giga_replay`` phase runs it
+    here on ``vector_torch``, ``"cuda"`` (the wave's default device), every
+    wide front through the cap-chain kernel, and holds it equal to the numpy
+    ``vector`` engine and to those counts.
+    """
+    from repro_torch.core.image import shared_base_images
+
+    cfg = serving_config(
+        seed,
+        n_tenants=n_tenants,
+        vm_pool_size=100_000,
+        minutes=minutes,
+        scale=scale,
+        failover_at=(minutes * 60) // 2,  # default 720s outlives short replays
+    )
+    cfg.wave.engine = engine
+    cfg.wave.record_trace = False
+    images = shared_base_images(
+        n_tenants, 4, image_bytes=cfg.wave.image_bytes
+    )
+    cfg.images = {
+        t.function_id: img for t, img in zip(cfg.tenants, images)
+    }
+    return cfg
 
 
 @dataclass

@@ -269,17 +269,36 @@ def test_port_runs_with_jax_and_reference_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "import repro_torch.sim.multi_tenant, repro_torch.sim.workload\n"
+        "import repro_torch.sim.reference, repro_torch.distributed.elastic\n"
+        "import repro_torch.distributed.fault\n"
         "from repro_torch.sim import WaveConfig, provision_wave\n"
+        "from repro_torch.sim import MultiTenantConfig, MultiTenantReplay, TenantConfig\n"
         "lat = provision_wave('faasnet', 16, WaveConfig(device='cpu'))\n"
         "print(repr(sorted(lat.items())))\n"
+        "trace = [0.0] * 5 + [40.0] * 30 + [2.0] * 25\n"
+        "rep = MultiTenantReplay(MultiTenantConfig(tenants=[TenantConfig('f', trace, seed=1)],\n"
+        "    vm_pool_size=64, wave=WaveConfig(device='cpu')))\n"
+        "res = rep.run()\n"
+        "print(repr([tuple(vars(s).values()) for s in res.timelines['f']]))\n"
+        "print(repr(rep.tenants[0].responses))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
+    lat_line, ticks_line, responses_line = out.stdout.strip().splitlines()
     want = sorted(jsim.provision_wave("faasnet", 16, jsim.WaveConfig()).items())
-    assert out.stdout.strip() == repr(want)
+    assert lat_line == repr(want)
+    trace = [0.0] * 5 + [40.0] * 30 + [2.0] * 25
+    rep = jsim.MultiTenantReplay(
+        jsim.MultiTenantConfig(tenants=[jsim.TenantConfig("f", trace, seed=1)], vm_pool_size=64)
+    )
+    res = rep.run()
+    assert len(res.timelines["f"]) == 60 and res.cold_starts > 0
+    assert ticks_line == repr([dataclasses.astuple(s) for s in res.timelines["f"]])
+    assert responses_line == repr(rep.tenants[0].responses)
 
 
 def test_no_silent_cpu_when_cuda_is_absent(monkeypatch):
