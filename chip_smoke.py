@@ -46,6 +46,20 @@ drives the port's two paths:
     ``attn_impl="pallas"``, checked as deepseek_7b is;
   - and the block-checkpoint cold start (save, lazy restore, serve) on
     deepseek_7b's smoke config.
+* training (phase ``train``; the training path launches no kernel, as the
+  reference trains through ``full``/``chunked`` attention and its Pallas
+  kernels have no backward):
+  - one float32 train step of six smoke configs on the card against the
+    port's CPU path, from the same seeded params and batch;
+  - the restart of ``tests/test_train.py`` on the card: a run that fails
+    at step 13 and resumes from its step-10 block checkpoint must reach the
+    uninterrupted run's loss at step 20 within 1e-4;
+  - ``granite_moe_1b`` (1,334,628,352 parameters, remat "block") trained
+    at full width through ``run_train``: 8 steps of 8 x 512 tokens in two
+    microbatches, each timed; ``n_micro`` 1 against 2; a falling loss over
+    one repeated batch; peak memory with and without remat; a profiled
+    step;
+  - ``ops.flash_attention`` under autograd on the card must refuse.
 
 It then times the kernels (K1's packed engine route beside its tensor
 wrapper; K2 and K4 with a cold L2, rotating through operand sets over
@@ -151,6 +165,22 @@ K5_TILED = (1e-3, 1e-2)
 K5_PAIRS_SHAPES = [(256, 2, 128), (96, 2, 48)]
 
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_BATCH = 8, 512, 16, 4
+
+# The training path.  (a) One float32 train step of each smoke config on the
+# card against the port's CPU path (which the CPU tests hold against the JAX
+# package), from the same seeded params and batch: two microbatches of
+# 2 x 32 tokens, AdamW without warmup.  Limits: loss 1e-5 relative,
+# grad_norm 1e-4, updated master 2·lr + 1e-6 absolute (step 1 of Adam is
+# lr·sign(g), and a near-zero gradient may flip its sign).  (b) The restart
+# test of tests/test_train.py on deepseek_7b's smoke config: 20 steps, a
+# checkpoint every 10, a failure at step 13; the resumed run's loss at step
+# 20 within 1e-4 of the uninterrupted one.  (c) granite_moe_1b at full width
+# (remat "block", attn_impl "chunked", as its config sets them).
+TRAIN_PARITY_ARCHS = ("deepseek_7b", "granite_moe_1b", "mamba2_130m", "jamba_v01_52b",
+                      "gemma3_1b", "llava_next_mistral_7b")
+TRAIN_PARITY = dict(seq_len=32, batch=4, n_micro=2, lr=1e-3)
+TRAIN_FULL = dict(steps=8, seq_len=512, batch=8, n_micro=2)
+TRAIN_FULL_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
 
 # K2 and K4 are timed with a cold L2: each call rotates through operand sets
 # that together exceed this, so no launch finds its operands in the 50 MB L2
@@ -1554,17 +1584,25 @@ def profile_prefill_and_decode(model, params, prompts) -> dict:
                 logits, cache = model.decode_step(params, {"tokens": nxt, "pos": toks.shape[1]}, cache)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        by_name: dict = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        busy = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        out[kind] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
-                         idle_share=1 - busy / (wall * 1e3), kernels=sum(1 for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
-                         top_ms=[[name[:80], ms] for name, ms in top])
+        out[kind] = device_summary(prof, wall, top=6)
     return out
+
+
+def device_summary(prof, wall_s: float, top: int) -> dict:
+    """Device busy ms (kernel events), idle share of ``wall_s``, kernel count
+    and the ``top`` device ops by time, from a ``torch.profiler`` trace."""
+    import torch
+
+    by_name: dict = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            n += 1
+    busy = sum(by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return dict(wall_ms=wall_s * 1e3, device_busy_ms=busy, idle_share=1 - busy / (wall_s * 1e3),
+                kernels=n, top_ms=[[name[:80], ms] for name, ms in ranked])
 
 
 def pallas_vs_chunked(cfg, params, prompts, dtype: str) -> dict:
@@ -1649,6 +1687,235 @@ def phase_cold_start() -> dict:
     out = dict(arch=cfg.name, k3_launches=launches, requests=len(done),
                tokens_equal_cpu=True, **{k: v for k, v in stats.items()})
     emit("cold_start", **out)
+    return out
+
+
+def train_parity(arch: str) -> dict:
+    """One float32 train step of ``arch``'s smoke config on the card and on
+    the CPU, from params drawn on the CPU from seed 0."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.params import tree_leaves_with_path, tree_map
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
+    lr = TRAIN_PARITY["lr"]
+    _, step = make_train_step(cfg, opt=AdamWConfig(lr=lr, warmup_steps=0, total_steps=10),
+                              n_micro=TRAIN_PARITY["n_micro"])
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        state = init_train_state(cfg, torch.Generator().manual_seed(0))
+        params, opt_state = tree_map(lambda x: x.to(dev), state)
+        batch = make_batch(cfg, TRAIN_PARITY["seq_len"], TRAIN_PARITY["batch"], kind="train",
+                           seed=1, device=dev)
+        _, opt_state, metrics = step(params, opt_state, batch)
+        runs[dev] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                     [x.cpu() for _, x in tree_leaves_with_path(opt_state["master"])])
+    (lc, gc_, mc), (lg, gg, mg) = runs["cpu"], runs["cuda"]
+    loss_rel, gnorm_rel = abs(lg - lc) / abs(lc), abs(gg - gc_) / gc_
+    master_err = max(float((a - b).abs().max()) for a, b in zip(mc, mg))
+    out = dict(arch=cfg.name, remat=cfg.remat, loss=lg, loss_rel=loss_rel,
+               grad_norm=gg, grad_norm_rel=gnorm_rel, master_max_abs_diff=master_err)
+    check(loss_rel <= 1e-5, f"train parity {arch}: loss {lg} on cuda vs {lc} on cpu")
+    check(gnorm_rel <= 1e-4, f"train parity {arch}: grad_norm {gg} on cuda vs {gc_} on cpu")
+    check(master_err <= 2 * lr + 1e-6, f"train parity {arch}: master differs by {master_err}")
+    return out
+
+
+def train_restart() -> dict:
+    """tests/test_train.py's restart on deepseek_7b's smoke config, on the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import SimulatedFailure, run_train
+
+    cfg = get_smoke("deepseek_7b")
+    kw = dict(steps=20, seq_len=32, batch=4, ckpt_every=10, log_every=1, device="cuda",
+              opt=AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=20))
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        ref = run_train(cfg, ckpt_dir=f"{root}/ref", **kw)
+        try:
+            run_train(cfg, ckpt_dir=f"{root}/ft", fail_at_step=13, async_save=True, **kw)
+            check(False, "fail_at_step=13 raised no SimulatedFailure")
+        except SimulatedFailure:
+            pass
+        res = run_train(cfg, ckpt_dir=f"{root}/ft", **kw)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    diff = abs(res.losses[20] - ref.losses[20])
+    check(res.resumed_from == 10 and res.steps_run == 10, f"resumed from {res.resumed_from}")
+    check(diff <= 1e-4, f"restart: loss[20] {res.losses[20]} vs {ref.losses[20]}")
+    return dict(arch=cfg.name, resumed_from=res.resumed_from, loss_20=res.losses[20],
+                loss_20_uninterrupted=ref.losses[20], abs_diff=diff,
+                equal_losses_11_20=all(res.losses[s] == ref.losses[s] for s in range(11, 21)))
+
+
+def profile_train_step(step, params, opt_state, batch) -> dict:
+    """Device busy time against wall time for one train step, from a
+    ``torch.profiler`` trace (kernel events only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return device_summary(prof, wall, top=5)
+
+
+def train_full_width() -> dict:
+    """granite_moe_1b at full width: run_train for 8 steps (each synchronised
+    and timed; every loss finite), then n_micro 1 against 2 from one state,
+    8 steps over one batch whose loss must fall, a profiled step, and the
+    peak memory of a step with and without remat.
+
+    The run's own loss is reported, not gated: in 8 steps of fresh batches
+    over a 49,155-token vocabulary the cross-entropy barely moves, and the
+    router's load-balancing term (summed over 24 layers) rises as the
+    routers leave their initial balance, in float32 as in bf16 and at
+    learning rates 1e-4 to 1e-3."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.params import tree_leaves_with_path
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import loop
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_config("granite_moe_1b")
+    opt = AdamWConfig(**TRAIN_FULL_OPT)
+    tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq_len"]
+    walls = []
+
+    def timed(make):
+        def make_timed(*a, **kw):
+            model, step = make(*a, **kw)
+
+            def run(*args):
+                t = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+                return out
+            return model, run
+        return make_timed
+
+    def fresh_state():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with patched(loop, "make_train_step", timed):
+        res = loop.run_train(cfg, log_every=1, opt=opt, device="cuda", **TRAIN_FULL)
+    launches = launch_counts()
+    peak_block = torch.cuda.max_memory_allocated()
+    losses = [res.losses[s] for s in range(1, TRAIN_FULL["steps"] + 1)]
+    check(all(np.isfinite(losses)), f"granite losses {losses}")
+    check(not any(launches.values()), f"a kernel launched on the training path: {launches}")
+
+    # n_micro 1 against 2 from one state and batch; then the n_micro=2 run
+    # goes on over the same batch, whose loss must fall, and one more step
+    # is traced
+    batch = make_batch(cfg, TRAIN_FULL["seq_len"], TRAIN_FULL["batch"], kind="train", seed=0,
+                       device="cuda")
+    new = {}
+    for n_micro in (1, 2):
+        params, opt_state = fresh_state()
+        _, step = make_train_step(cfg, opt=opt, n_micro=n_micro)
+        params, opt_state, m = step(params, opt_state, batch)
+        new[n_micro] = [x.clone() for _, x in tree_leaves_with_path(params)], float(m["loss"])
+        if n_micro == 1:
+            del params, opt_state, m
+    micro_diff = max(float((a.float() - b.float()).abs().max())
+                     for a, b in zip(new[1][0], new[2][0]))
+    check(micro_diff <= 2e-2, f"n_micro 1 vs 2: params differ by {micro_diff}")
+    micro_losses = {n: new[n][1] for n in new}
+    del new
+    same_batch = [micro_losses[2]]
+    for _ in range(TRAIN_FULL["steps"] - 1):
+        params, opt_state, m = step(params, opt_state, batch)
+        same_batch.append(float(m["loss"]))
+    check(all(np.isfinite(same_batch)) and same_batch[-1] < same_batch[0],
+          f"granite loss over one repeated batch did not fall: {same_batch}")
+    prof = profile_train_step(step, params, opt_state, batch)
+    del params, opt_state, step, m
+
+    params, opt_state = fresh_state()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, step = make_train_step(dataclasses.replace(cfg, remat="none"), opt=opt,
+                              n_micro=TRAIN_FULL["n_micro"])
+    step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    peak_none = torch.cuda.max_memory_allocated()
+    _, step = make_train_step(cfg, opt=opt, n_micro=TRAIN_FULL["n_micro"])
+    torch.cuda.reset_peak_memory_stats()
+    step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    peak_block_step = torch.cuda.max_memory_allocated()
+    del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_params = cfg.param_count()
+    return dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+        experts=cfg.moe.n_experts, top_k=cfg.moe.top_k, remat=cfg.remat,
+        attn_impl=cfg.attn_impl, compute_dtype=cfg.compute_dtype, **TRAIN_FULL, opt=TRAIN_FULL_OPT,
+        launches=launches, losses=losses, loss_fell=losses[-1] < losses[0],
+        same_batch_losses=same_batch, step_wall_s=walls,
+        step_wall_mean_s_after_first=sum(walls[1:]) / len(walls[1:]),
+        tokens_per_s=tokens * len(walls[1:]) / sum(walls[1:]), run_wall_s=res.wall_s,
+        peak_memory_bytes_remat_block=peak_block, peak_memory_bytes_step_remat_block=peak_block_step,
+        peak_memory_bytes_step_remat_none=peak_none, state_bytes_before_step=base,
+        n_micro_1_vs_2_max_abs_param_diff=micro_diff, n_micro_losses=micro_losses,
+        profile=prof,
+    )
+
+
+def phase_train() -> dict:
+    """The training path on the card: (a) CPU parity on six smoke configs,
+    (b) exact restart, (c) granite_moe_1b at full width, (d) the kernel
+    wrappers refuse autograd."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    out = {"parity": [train_parity(arch) for arch in TRAIN_PARITY_ARCHS],
+           "restart": train_restart(), "full_width": train_full_width()}
+    q = torch.randn(1, 2, 128, 64, device="cuda", requires_grad=True)
+    k, v = torch.randn(2, 1, 2, 128, 64, device="cuda")
+    before = fa.flash_attention_bhtd.launches
+    try:
+        ops.flash_attention(q, k, v, scale=0.125)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused and fa.flash_attention_bhtd.launches == before,
+          "ops.flash_attention under autograd on cuda did not refuse")
+    with torch.no_grad():
+        check(bool(torch.isfinite(ops.flash_attention(q, k, v, scale=0.125)).all()),
+              "ops.flash_attention under no_grad")
+    out["autograd_refused"] = refused
+    emit("train", **out)
     return out
 
 
@@ -1891,6 +2158,7 @@ def main() -> int:
     mamba = timed(phase_serve_mamba2_130m)
     granite = timed(phase_serve_granite_moe_1b)
     cold = timed(phase_cold_start)
+    timed(phase_train)
     times = timed(phase_timings, giga)
 
     src = "src/repro_torch/kernels/csrc/cap_chain.cu"

@@ -8,9 +8,13 @@ fronts, the flash attention of the models' prefill), ``repro_torch.configs``
 and ``repro_torch.models`` the model zoo's attention + MLP families,
 ``repro_torch.checkpoint`` the block-format checkpoints, and
 ``repro_torch.serving`` the batching server with its block-checkpoint cold
-start.  Entry points run on the card (``device="cuda"``) unless the caller
-asks for the CPU.
+start, and ``repro_torch.data``, ``repro_torch.optim`` and
+``repro_torch.train`` the training path (synthetic batches, AdamW, the
+microbatched train step, the train loop with block-checkpoint restart).
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the CPU.
 """
-from . import checkpoint, configs, core, kernels, models, serving, sim
+from . import checkpoint, configs, core, data, kernels, models, optim, serving, sim, train
 
-__all__ = ["checkpoint", "configs", "core", "kernels", "models", "serving", "sim"]
+__all__ = ["checkpoint", "configs", "core", "data", "kernels", "models", "optim", "serving",
+           "sim", "train"]

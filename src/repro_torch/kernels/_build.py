@@ -7,7 +7,8 @@ interface, named by a hash of the source and the flags, under
 :mod:`ctypes`.  The libraries are independent, so they can be built in
 parallel.  Nothing here runs at import time: the module
 imports on a host without CUDA or ``nvcc``, and only a launch on a CUDA
-tensor reaches :func:`library`.
+tensor reaches :func:`library`.  :func:`refuse_autograd` is the one rule
+every kernel wrapper applies on both of its routes.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -128,3 +131,19 @@ def library(name: str) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def refuse_autograd(name: str, *operands) -> None:
+    """Raise where autograd would record a call of kernel ``name``.
+
+    No kernel has a backward, as none of the JAX package's Pallas kernels
+    has one (it defines no ``custom_vjp``, and ``jax.grad`` through them
+    fails).  A launch's output carries no ``grad_fn``, so a loss taken
+    through it would get wrong gradients with no error; the plain version
+    refuses too, so that the two routes behave alike.
+    """
+    if torch.is_grad_enabled() and any(x.requires_grad for x in operands):
+        raise NotImplementedError(
+            f"{name} has no backward (nor has the JAX package's Pallas kernel); "
+            "train through attn_impl 'full' or 'chunked', or call it under torch.no_grad()"
+        )

@@ -32,12 +32,15 @@ Both sides keep the Pallas wrapper's shape rule: ``S`` must be a multiple
 of ``min(bs, S)``, although the kernel's tiles do not follow ``bs``.  Any
 other dtype on a CUDA tensor raises ``ValueError``, and a failed build or
 launch raises: there is no fallback.  Each call adds one to
-``decode_attention_bhsd.launches``.
+``decode_attention_bhsd.launches``.  Neither route has a backward, as the
+Pallas kernel has none: under autograd, with an operand that requires
+grad, both raise ``NotImplementedError`` (``_build.refuse_autograd``).
 """
 from __future__ import annotations
 
 import torch
 
+from ._build import refuse_autograd
 from .ref import decode_attention_ref, decode_split_plan
 
 __all__ = [
@@ -118,6 +121,7 @@ def decode_attention_bhsd(
 ) -> torch.Tensor:
     """One query against the cache; (BH, 1, hd) out in q's dtype."""
     _check_shapes(q, k, v, valid, bs)
+    refuse_autograd("decode_attention_bhsd", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_torch(q, k, v, valid, scale=scale)
     if q.device.type != "cuda":

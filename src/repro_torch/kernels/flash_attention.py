@@ -14,6 +14,9 @@ a CPU tensor.  Both sides keep the Pallas wrapper's shape rule: the tile is
 bf16 and float32 with ``hd`` in ``SUPPORTED_HD``; anything else on a CUDA
 tensor raises ``ValueError``, and a failed build or launch raises: there is
 no fallback.  Each launch adds one to ``flash_attention_bhtd.launches``.
+Neither route has a backward, as the Pallas kernel has none: with autograd
+on and an operand that requires grad, both raise ``NotImplementedError``
+(``_build.refuse_autograd``); train through ``full`` or ``chunked``.
 
 The source holds two instances behind one entry point.  bf16 runs on the
 tensor cores (``mma.sync`` tiles fed by ``cp.async``; P enters the PV
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ._build import refuse_autograd
 from .ref import flash_attention_ref
 
 __all__ = [
@@ -83,6 +87,7 @@ def flash_attention_bhtd(
 ) -> torch.Tensor:
     """Causal (sliding-window) attention; (BH, T, hd) in, same out."""
     _check_shapes(q, k, v, window)
+    refuse_autograd("flash_attention_bhtd", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, scale=scale, window=window)
     if q.device.type != "cuda":

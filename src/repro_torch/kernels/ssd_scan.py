@@ -19,12 +19,16 @@ chunk of at most ``MAX_CHUNK``; anything else on a CUDA tensor raises
 ``ValueError``, and a failed build or launch raises: there is no fallback.
 Each call that launches the kernel's passes adds one to
 ``ssd_scan_bhtpn.launches``.  The wrapper allocates the passes' float32
-workspace (:func:`workspace_floats`) with ``torch.empty``.
+workspace (:func:`workspace_floats`) with ``torch.empty``.  Neither route
+has a backward, as the Pallas kernel has none: under autograd, with an
+operand that requires grad, both raise ``NotImplementedError``
+(``_build.refuse_autograd``).
 """
 from __future__ import annotations
 
 import torch
 
+from ._build import refuse_autograd
 from .ref import ssd_scan_ref
 
 __all__ = [
@@ -104,6 +108,7 @@ def ssd_scan_bhtpn(
 ) -> torch.Tensor:
     """The SSD scan from a zero state; (BH, T, P) out in x's dtype."""
     chunk = _check_shapes(x, dt, a, b, c, q)
+    refuse_autograd("ssd_scan_bhtpn", x, dt, a, b, c)
     if x.device.type == "cpu":
         return ssd_scan_torch(x, dt, a, b, c, q=q)
     if x.device.type != "cuda":

@@ -8,7 +8,10 @@ it.  Keeping the stacked layout makes params and caches match the
 reference's leaf for leaf, so checkpoints carry over.
 
 Three modes share one code path:
-  * ``train``   — full-sequence forward, no cache;
+  * ``train``   — full-sequence forward, no cache; with ``cfg.remat ==
+                  "block"`` each block (each repeat of a stage's pattern)
+                  runs under ``torch.utils.checkpoint``, as the reference
+                  wraps it in ``jax.checkpoint``;
   * ``prefill`` — full-sequence forward, emits per-layer caches;
   * ``decode``  — one new token against the caches (attention KV ring or
                   full buffers, mamba conv + ssm state).  The port writes
@@ -29,6 +32,7 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from .layers import (
@@ -332,8 +336,14 @@ def _run_stage(cfg, stage: Stage, stage_params, x, *, positions, inv_freq,
             aux = aux + a
         return x, tuple(new_caches), aux
 
+    fn = run_pattern
+    if cfg.remat == "block" and mode == "train":
+        # keep only each block's input; its activations are recomputed in
+        # the backward pass (the reference's jax.checkpoint)
+        fn = functools.partial(checkpoint, run_pattern, use_reentrant=False)
+
     if stage.repeat == 1:
-        return run_pattern(x, stage_params, stage_cache)
+        return fn(x, stage_params, stage_cache)
 
     aux_total = torch.zeros((), dtype=_F32, device=x.device)
     per_rep = []
@@ -342,7 +352,7 @@ def _run_stage(cfg, stage: Stage, stage_params, x, *, positions, inv_freq,
         # the stacked buffers
         params_r = tree_map(lambda a: a[r], stage_params)
         cache_r = tree_map(lambda a: a[r], stage_cache) if stage_cache is not None else None
-        x, nc, a = run_pattern(x, params_r, cache_r)
+        x, nc, a = fn(x, params_r, cache_r)
         per_rep.append(nc)
         aux_total = aux_total + a
     if mode == "decode":

@@ -1,0 +1,88 @@
+"""Train-step factory: microbatched gradient accumulation and AdamW.
+
+``make_train_step(cfg, ...)`` builds
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``,
+the JAX package's single-device step:
+
+  * gradient accumulation over ``n_micro`` microbatches, each through
+    ``model.loss`` and ``torch.autograd`` (activation memory bounded by the
+    microbatch, not the global batch), summed in float32 and divided by
+    ``n_micro``;
+  * AdamW on the float32 master weights (``optim.adamw``, in place), and the
+    new params as the master weights cast to the params' dtype.
+
+``opt_state`` is updated in place and returned, where the JAX package
+donates it.  The ZeRO-1 sharding of the reference's mesh branch is not
+ported: ``mesh`` must be ``None``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.models import model_for
+from repro_torch.models.params import tree_leaves_with_path, tree_map, tree_unflatten
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+
+PyTree = Any
+
+
+def _split_microbatches(batch: dict, n_micro: int) -> list[dict]:
+    def split(x, i):
+        if x.dim() == 0:
+            return x
+        b = x.shape[0]
+        if b % n_micro:
+            raise ValueError(f"batch {b} is not a multiple of n_micro={n_micro}")
+        return x.reshape(n_micro, b // n_micro, *x.shape[1:])[i]
+
+    return [{k: split(v, i) for k, v in batch.items()} for i in range(n_micro)]
+
+
+def make_train_step(cfg, mesh=None, *, opt: AdamWConfig | None = None,
+                    n_micro: int = 1):
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_train_step: the mesh (ZeRO-1 sharding) branch is not ported; "
+            "ROADMAP.md Queue 1 item 7 (distributed/sharding.py) comes first"
+        )
+    opt = opt or AdamWConfig()
+    model = model_for(cfg)
+
+    def train_step(params, opt_state, batch):
+        leaves = [p for _, p in tree_leaves_with_path(params)]
+        device = leaves[0].device
+        g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=device) for p in leaves]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        for mb in _split_microbatches(batch, n_micro):
+            with torch.enable_grad():
+                live = [p.detach().requires_grad_() for p in leaves]
+                loss, metrics = model.loss(tree_unflatten(params, live), mb)
+                grads = torch.autograd.grad(loss, live, allow_unused=True)
+            with torch.no_grad():
+                for acc, g in zip(g_acc, grads):
+                    if g is not None:  # a leaf the loss does not use: a zero gradient
+                        acc.add_(g)
+                loss_sum = loss_sum + loss.detach()
+            ce_last = metrics["ce"].detach()
+        with torch.no_grad():
+            grads = tree_unflatten(params, [g.div_(n_micro) for g in g_acc])
+            del g_acc, live
+            new_master, new_opt, om = adamw_update(opt, grads, opt_state)
+            del grads  # the f32 accumulator, freed before the new params are cast
+            new_params = tree_map(lambda m, p: m.to(p.dtype, copy=True), new_master, params)
+        metrics = {"loss": loss_sum / n_micro, "ce_last": ce_last, **om}
+        return new_params, new_opt, metrics
+
+    return model, train_step
+
+
+def init_train_state(cfg, gen: torch.Generator):
+    """Params (compute dtype) and optimizer state, on ``gen.device``."""
+    model = model_for(cfg)
+    params = model.init(gen)
+    dtype = getattr(torch, cfg.compute_dtype)
+    params_c = tree_map(lambda p: p.to(dtype, copy=True), params)
+    opt_state = init_opt_state(params)
+    return params_c, opt_state

@@ -257,11 +257,37 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_port_imports_neither_jax_nor_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("torch_*.py"))
+             + sorted((ROOT / "scripts").glob("torch_*.py")))
     assert len(files) > 10
+    assert {"torch_quickstart.py", "torch_burst_serving.py"} <= {f.name for f in files}
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, (path, bad)
+
+
+def test_training_path_runs_with_jax_and_reference_blocked(tmp_path):
+    """Every module of the training path imports, and the launcher trains and
+    resumes on the CPU, with ``jax`` and ``repro`` absent."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch.data.synthetic, repro_torch.optim.adamw, repro_torch.optim.compress\n"
+        "import repro_torch.train.step, repro_torch.train.loop\n"
+        "from repro_torch.launch import train\n"
+        f"args = ['--arch', 'mamba2_130m', '--steps', '2', '--seq-len', '16', '--batch', '2',\n"
+        f"        '--device', 'cpu', '--ckpt-dir', {str(tmp_path)!r}, '--ckpt-every', '1']\n"
+        "train.main(args)\n"
+        "train.main(args[:3] + ['3'] + args[4:])\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert "step      3  loss" in out.stdout and "(resumed from checkpoint step 2)" in out.stdout
 
 
 def test_port_runs_with_jax_and_reference_blocked():
