@@ -44,13 +44,22 @@ drives the port's two paths:
     the decode caches must reproduce a prefill of the generated text;
   - ``granite_moe_1b`` (24 layers, 32 experts top-8, GQA at hd 64) with
     ``attn_impl="pallas"``, checked as deepseek_7b is;
+  - ``whisper_medium`` (24 encoder + 24 decoder layers, d 1024, 16 heads
+    x 64, encoder ctx 1500) with ``attn_impl="pallas"``, through the model
+    facade (``ServeEngine`` feeds no frames, in either package): 8 requests
+    of (1500, 1024) frame embeddings and a 128-token prompt, 32 new tokens
+    each, 4 to a batch; K3 on the decoder's prefill self-attention, 48
+    launches; the param tree must hold the reference's 759,592,960; an f32
+    prefill through K3 against ``chunked``; and a 2 + 2 layer cut at full
+    width served 24 steps on the card against the port's CPU path;
   - and the block-checkpoint cold start (save, lazy restore, serve) on
     deepseek_7b's smoke config.
 * training (phase ``train``; the training path launches no kernel, as the
   reference trains through ``full``/``chunked`` attention and its Pallas
   kernels have no backward):
-  - one float32 train step of six smoke configs on the card against the
-    port's CPU path, from the same seeded params and batch;
+  - one float32 train step of seven smoke configs (whisper_medium's
+    included) on the card against the port's CPU path, from the same
+    seeded params and batch;
   - the restart of ``tests/test_train.py`` on the card: a run that fails
     at step 13 and resumes from its step-10 block checkpoint must reach the
     uninterrupted run's loss at step 20 within 1e-4;
@@ -64,7 +73,8 @@ drives the port's two paths:
 It then times the kernels (K1's packed engine route beside its tensor
 wrapper; K2 and K4 with a cold L2, rotating through operand sets over
 ``COLD_BYTES`` in all, each beside its first design in the same run; K3's
-bf16 and float32 instances each beside causal SDPA; K5's three passes).  Each phase prints one JSON line; any failure
+bf16 and float32 instances each beside causal SDPA, also at whisper_medium's
+prefill shape; K5's three passes).  Each phase prints one JSON line; any failure
 raises and the script exits non-zero.  The last lines are the kernel table, the
 card's name and power limit as ``nvidia-smi`` reports them, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout, it
@@ -166,6 +176,24 @@ K5_PAIRS_SHAPES = [(256, 2, 128), (96, 2, 48)]
 
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_BATCH = 8, 512, 16, 4
 
+# whisper_medium served through the model facade (ServeEngine feeds tokens
+# only, in either package): 8 requests, 4 to a batch, each with its own
+# (1500, 1024) frame embeddings and a 128-token prompt (within Whisper's
+# 224-token cap on the previous-text prompt, and a multiple of K3's 128-row
+# tile, which the kernel's wrapper requires of T >= 128 as the Pallas one
+# does), 32 new tokens each.  The self-cache is a ring as long as the
+# prompt, so decode wraps it.
+WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_NEW = 8, 128, 32
+# The JAX package's init tree for whisper_medium holds 759,592,960
+# parameters (jax.eval_shape of its model_for(cfg).init); cfg.param_count()
+# is the reference's rough enc-dec count, 707,594,240.
+WHISPER_PARAMS = 759_592_960
+# check (d): whisper_medium's widths and encoder_ctx at 2 + 2 layers, f32,
+# a 16-token prompt and 24 decode steps on the card and on the CPU
+WHISPER_CPU = dict(layers=2, batch=2, prompt=16, steps=24, limit=1e-4)
+# K3 on whisper_medium's decoder prefill: 4 requests x 16 heads, T 128, hd 64
+K3_WHISPER = (SERVE_BATCH * 16, WHISPER_PROMPT, 64)
+
 # The training path.  (a) One float32 train step of each smoke config on the
 # card against the port's CPU path (which the CPU tests hold against the JAX
 # package), from the same seeded params and batch: two microbatches of
@@ -177,7 +205,7 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_BATCH = 8, 512, 16, 4
 # 20 within 1e-4 of the uninterrupted one.  (c) granite_moe_1b at full width
 # (remat "block", attn_impl "chunked", as its config sets them).
 TRAIN_PARITY_ARCHS = ("deepseek_7b", "granite_moe_1b", "mamba2_130m", "jamba_v01_52b",
-                      "gemma3_1b", "llava_next_mistral_7b")
+                      "gemma3_1b", "llava_next_mistral_7b", "whisper_medium")
 TRAIN_PARITY = dict(seq_len=32, batch=4, n_micro=2, lr=1e-3)
 TRAIN_FULL = dict(steps=8, seq_len=512, batch=8, n_micro=2)
 TRAIN_FULL_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
@@ -1012,8 +1040,10 @@ def phase_k3_vs_plain() -> dict:
     from repro_torch.kernels.ref import flash_attention_tiled_ref
 
     worst, worst_tiled, per_shape = {}, 0.0, []
+    # the served shapes in bf16: whisper_medium's decoder prefill (one q
+    # tile against one diagonal k tile) and deepseek_7b's, last
     cases = [(shape, dt) for dt in ("bfloat16", "float32") for shape in K3_SWEEP]
-    cases.append((K3_SERVE, "bfloat16"))
+    cases += [((*K3_WHISPER, None), "bfloat16"), (K3_SERVE, "bfloat16")]
     for (bh, t, hd, window), dt in cases:
         name = f"{(bh, t, hd, window)} {dt}"
         q, k, v = k3_operands(bh, t, hd, dt, seed=bh * 1000 + t + hd)
@@ -1037,7 +1067,9 @@ def phase_k3_vs_plain() -> dict:
         per_shape.append(row)
     emit("k3_vs_plain", tolerances=K3_TOL, rel_bound=K3_REL, tiled_bound=K3_TILED, worst=worst,
          worst_vs_tiled=worst_tiled, shapes=per_shape)
-    return {"worst": worst, "serve_err": per_shape[-1]["max_abs_err"]}
+    return {"worst": worst, "serve_err": per_shape[-1]["max_abs_err"],
+            "whisper_err": per_shape[-2]["max_abs_err"],
+            "whisper_err_vs_tiled": per_shape[-2]["max_abs_err_vs_tiled"]}
 
 
 def within(got, want, atol: float, rtol: float) -> tuple[bool, float]:
@@ -1565,9 +1597,10 @@ def phase_serve_granite_moe_1b() -> dict:
     return out
 
 
-def profile_prefill_and_decode(model, params, prompts) -> dict:
+def profile_prefill_and_decode(model, params, prompts, extra=None) -> dict:
     """Device busy time against wall time for one prefill and one decode step
-    of a full batch, from a ``torch.profiler`` trace (kernel events only)."""
+    of a full batch, from a ``torch.profiler`` trace (kernel events only).
+    ``extra`` adds inputs to the prefill batch (whisper's frames)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1578,7 +1611,8 @@ def profile_prefill_and_decode(model, params, prompts) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if kind == "prefill":
-                logits, cache = model.prefill(params, {"tokens": toks}, cache_len=toks.shape[1] + 1)
+                logits, cache = model.prefill(params, {"tokens": toks, **(extra or {})},
+                                              cache_len=toks.shape[1] + 1)
             else:
                 nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
                 logits, cache = model.decode_step(params, {"tokens": nxt, "pos": toks.shape[1]}, cache)
@@ -1605,7 +1639,7 @@ def device_summary(prof, wall_s: float, top: int) -> dict:
                 kernels=n, top_ms=[[name[:80], ms] for name, ms in ranked])
 
 
-def pallas_vs_chunked(cfg, params, prompts, dtype: str) -> dict:
+def pallas_vs_chunked(cfg, params, prompts, dtype: str, extra=None) -> dict:
     """One full-width prefill in ``dtype`` through K3 and through ``chunked``:
     the largest |logit| difference, the largest |logit|, and the share of
     positions whose argmax agrees."""
@@ -1619,7 +1653,7 @@ def pallas_vs_chunked(cfg, params, prompts, dtype: str) -> dict:
     logits = {}
     for impl in ("pallas", "chunked"):
         m = model_for(dataclasses.replace(cfg, compute_dtype=dtype, attn_impl=impl))
-        out, _ = m.prefill(params, {"tokens": toks})
+        out, _ = m.prefill(params, {"tokens": toks, **(extra or {})})
         logits[impl] = out.float()
         torch.cuda.synchronize()
     lp, lc = logits["pallas"], logits["chunked"]
@@ -1632,15 +1666,185 @@ def pallas_vs_chunked(cfg, params, prompts, dtype: str) -> dict:
                 argmax_agreement_all_positions=float((lp.argmax(-1) == lc.argmax(-1)).float().mean()))
 
 
-def f32_pallas_vs_chunked(cfg, params, prompts) -> dict:
+def f32_pallas_vs_chunked(cfg, params, prompts, extra=None) -> dict:
     """In float32 the two paths agree within 1e-3 of the largest |logit|, with
     the same greedy tokens."""
-    out = pallas_vs_chunked(cfg, params, prompts, "float32")
+    out = pallas_vs_chunked(cfg, params, prompts, "float32", extra)
     check(out["greedy_tokens"] == out["greedy_tokens_chunked"],
           f"f32 greedy tokens differ: {out['greedy_tokens']} vs {out['greedy_tokens_chunked']}")
     check(out["rel_diff"] <= 1e-3,
           f"f32 pallas vs chunked: max diff {out['max_abs_diff']} at max |logit| {out['max_abs_logit']}")
     return out | {"limit": 1e-3}
+
+
+def whisper_inputs(cfg, n: int, prompt_len: int, seed: int, device: str):
+    """``n`` prompts and ``n`` frame embeddings, drawn with numpy from
+    ``seed``; the frames rounded to bf16 as ``make_batch`` rounds them."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    e = cfg.encdec
+    prompts = [rng.integers(0, cfg.vocab_size, size=prompt_len) for _ in range(n)]
+    frames = torch.from_numpy(rng.standard_normal((n, e.encoder_ctx, e.d_frontend))).to(
+        device=device, dtype=torch.bfloat16)
+    return prompts, frames
+
+
+def whisper_serve(model, params, prompts, frames, batch: int, new: int, device: str,
+                  keep_logits: bool = False) -> dict:
+    """``ServeEngine.step_batch``'s loop, with frames: up to ``batch``
+    requests a batch, left-padded with token 0, one prefill, then greedy
+    decode steps at ``pos = t + k - 1``.  Each call's host wall is taken
+    where its tokens reach the host.  With ``keep_logits`` each step's last
+    logits are copied to the host, per batch."""
+    import torch
+
+    walls = {"prefill": [], "decode": []}
+    tokens, ttft, latency, step_logits = [], [], [], []
+    finite = torch.ones((), dtype=torch.bool, device=device)
+    t_submit = time.perf_counter()
+    for i in range(0, len(prompts), batch):
+        reqs = prompts[i:i + batch]
+        t = max(len(p) for p in reqs)
+        toks = np.zeros((len(reqs), t), np.int32)
+        for j, p in enumerate(reqs):
+            toks[j, t - len(p):] = p
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": torch.from_numpy(toks).to(device),
+                                               "frames": frames[i:i + batch]})
+        last = logits[:, -1].argmax(dim=-1)
+        finite &= torch.isfinite(logits[:, -1]).all()
+        out = [[tok] for tok in last.tolist()]
+        now = time.perf_counter()
+        walls["prefill"].append(now - t0)
+        ttft.append(now - t_submit)
+        step_logits.append([logits[:, -1].float().cpu()] if keep_logits else [])
+        for k in range(1, new):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(
+                params, {"tokens": last[:, None].to(torch.int32), "pos": t + k - 1}, cache)
+            last = logits[:, -1].argmax(dim=-1)
+            finite &= torch.isfinite(logits[:, -1]).all()
+            for row, tok in zip(out, last.tolist()):
+                row.append(tok)
+            walls["decode"].append(time.perf_counter() - t0)
+            if keep_logits:
+                step_logits[-1].append(logits[:, -1].float().cpu())
+        latency.append(time.perf_counter() - t_submit)
+        tokens += out
+    return dict(walls=walls, tokens=tokens, ttft=ttft, latency=latency,
+                serve_s=time.perf_counter() - t_submit, step_logits=step_logits,
+                finite=bool(finite))
+
+
+def whisper_cpu_parity() -> dict:
+    """Check (d): whisper_medium's widths and full encoder_ctx at 2 encoder
+    and 2 decoder layers, f32, from params drawn on the CPU: a 16-token
+    prompt and 24 greedy decode steps (pos 16-39, so the 16-slot ring wraps)
+    on the card and on the port's CPU path.  Every step's logits within 1e-4
+    of the largest |logit|, and the same greedy tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_for
+    from repro_torch.models.params import tree_map
+
+    full = get_config("whisper_medium")
+    n = WHISPER_CPU["layers"]
+    cfg = dataclasses.replace(full, n_layers=n, compute_dtype="float32", attn_impl="pallas",
+                              encdec=dataclasses.replace(full.encdec, encoder_layers=n))
+    model = model_for(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    prompts, frames = whisper_inputs(cfg, WHISPER_CPU["batch"], WHISPER_CPU["prompt"], seed=2,
+                                     device="cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else tree_map(lambda x: x.to(dev), params)
+        runs[dev] = whisper_serve(model, p, prompts, frames.to(dev), WHISPER_CPU["batch"],
+                                  WHISPER_CPU["steps"] + 1, dev, keep_logits=True)
+    worst = 0.0
+    for got, want in zip(runs["cuda"]["step_logits"][0], runs["cpu"]["step_logits"][0]):
+        top = float(want.abs().max())
+        diff = float((got - want).abs().max())
+        check(diff <= WHISPER_CPU["limit"] * top,
+              f"whisper cuda vs cpu: logits differ by {diff} at max |logit| {top}")
+        worst = max(worst, diff / top)
+    check(runs["cuda"]["tokens"] == runs["cpu"]["tokens"],
+          f"whisper greedy tokens: cuda {runs['cuda']['tokens']} vs cpu {runs['cpu']['tokens']}")
+    return dict(layers=n, d_model=cfg.d_model, encoder_ctx=cfg.encdec.encoder_ctx,
+                batch=WHISPER_CPU["batch"], prompt_len=WHISPER_CPU["prompt"],
+                decode_steps=WHISPER_CPU["steps"],
+                positions=[WHISPER_CPU["prompt"], WHISPER_CPU["prompt"] + WHISPER_CPU["steps"] - 1],
+                max_rel_logit_diff=worst, limit_rel=WHISPER_CPU["limit"], tokens_equal=True)
+
+
+def phase_serve_whisper_medium() -> dict:
+    """whisper_medium at full width, 24 + 24 layers, through the model facade
+    on the card with K3 on its decoder's prefill self-attention: (a) the
+    params tree holds the reference's 759,592,960 parameters; (b) K3
+    launches 24 layers x 2 batches, the encoder none; (c) an f32 prefill
+    through K3 within 1e-3 of ``chunked``'s largest |logit|; (d) a 2 + 2
+    layer cut on the card against the CPU (``whisper_cpu_parity``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_for
+    from repro_torch.models.params import tree_leaves_with_path
+
+    cfg = dataclasses.replace(get_config("whisper_medium"), attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = model_for(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for _, x in tree_leaves_with_path(params))
+    check(n_params == WHISPER_PARAMS, f"whisper param count {n_params} vs {WHISPER_PARAMS}")
+    prompts, frames = whisper_inputs(cfg, WHISPER_REQUESTS, WHISPER_PROMPT, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    served = whisper_serve(model, params, prompts, frames, SERVE_BATCH, WHISPER_NEW, "cuda")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    walls = served["walls"]
+    n_batches = -(-WHISPER_REQUESTS // SERVE_BATCH)
+    k3 = launches["flash_attention_bhtd"]
+    check(k3 == cfg.n_layers * n_batches, f"whisper K3 launches {k3} vs {cfg.n_layers} x {n_batches}")
+    check(len(walls["decode"]) == n_batches * (WHISPER_NEW - 1), f"decode steps {len(walls['decode'])}")
+    check(len(served["tokens"]) == WHISPER_REQUESTS
+          and all(len(r) == WHISPER_NEW for r in served["tokens"]), "every request got its tokens")
+    check(all(0 <= tok < cfg.vocab_size for r in served["tokens"] for tok in r), "token ids in range")
+    check(served["finite"], "whisper serve: every step's last logits finite")
+    out = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, encoder_layers=cfg.encdec.encoder_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads, hd=cfg.hd, encoder_ctx=cfg.encdec.encoder_ctx,
+        vocab=cfg.vocab_size, params=n_params, param_count_rough=cfg.param_count(),
+        compute_dtype=cfg.compute_dtype, attn_impl=cfg.attn_impl, requests=WHISPER_REQUESTS,
+        prompt_len=WHISPER_PROMPT, new_tokens=WHISPER_NEW, max_batch=SERVE_BATCH,
+        launches=launches, k3_launches=k3, prefills=n_batches, decode_steps=len(walls["decode"]),
+        weights_init_s=init_s, prefill_wall_s=walls["prefill"],
+        decode_step_mean_s=sum(walls["decode"]) / len(walls["decode"]),
+        decode_wall_s=sum(walls["decode"]), serve_wall_s=served["serve_s"],
+        tokens_per_s=WHISPER_REQUESTS * WHISPER_NEW / served["serve_s"],
+        ttft_s=served["ttft"], latency_s=served["latency"],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        first_tokens=[r[:4] for r in served["tokens"]],
+    )
+    del served
+    first = {"frames": frames[:SERVE_BATCH]}
+    out["profile"] = profile_prefill_and_decode(model, params, prompts[:SERVE_BATCH], first)
+    out["f32_check"] = f32_pallas_vs_chunked(cfg, params, prompts[:SERVE_BATCH], first)
+    del params, frames
+    torch.cuda.empty_cache()
+    out["cpu_parity"] = whisper_cpu_parity()
+    emit("serve_whisper_medium", **out)
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_cold_start() -> dict:
@@ -1891,7 +2095,7 @@ def train_full_width() -> dict:
 
 
 def phase_train() -> dict:
-    """The training path on the card: (a) CPU parity on six smoke configs,
+    """The training path on the card: (a) CPU parity on seven smoke configs,
     (b) exact restart, (c) granite_moe_1b at full width, (d) the kernel
     wrappers refuse autograd."""
     import torch
@@ -2107,6 +2311,7 @@ def phase_timings(giga: dict) -> dict:
         "k3_hd256": time_k3(*K3_HD256),
         "k3_f32": time_k3(*K3_SERVE[:3], dtype="float32"),
         "k3_f32_hd256": time_k3(*K3_HD256, dtype="float32"),
+        "k3_whisper": time_k3(*K3_WHISPER),
         "k4": time_k4(*K4_SERVE[::2], sweep=True),
         "k4_other": [time_k4(bh, hd, sweep=True) for bh, hd in K4_OTHER],
         "k5": time_k5(),
@@ -2157,6 +2362,7 @@ def main() -> int:
     serve = timed(phase_serve_full_width)
     mamba = timed(phase_serve_mamba2_130m)
     granite = timed(phase_serve_granite_moe_1b)
+    whisper = timed(phase_serve_whisper_medium)
     cold = timed(phase_cold_start)
     timed(phase_train)
     times = timed(phase_timings, giga)
@@ -2195,6 +2401,9 @@ def main() -> int:
          "library_ms": k3_t["library_ms"], "library": "scaled_dot_product_attention",
          "on_main_path": True, "shape": [k3_t["bh"], k3_t["t"], k3_t["hd"]], "dtype": "bfloat16",
          "wrapper_ms": k3_t["wrapper_ms"], "granite_moe_1b_launches": granite["k3_launches"],
+         "whisper_medium_launches": whisper["k3_launches"],
+         "whisper_medium": {**times["k3_whisper"], "max_abs_err": k3_check["whisper_err"],
+                            "max_abs_err_vs_tiled": k3_check["whisper_err_vs_tiled"]},
          "cold_start_launches": cold["k3_launches"], "hd256": times["k3_hd256"],
          "f32": times["k3_f32"], "f32_hd256": times["k3_f32_hd256"], "instances": build["k3"]},
         {"name": "decode_attention_bhsd", "route": "cuda", "source": csrc + "decode_attention.cu",

@@ -7,9 +7,11 @@
   * ``decode_step(params, batch, cache)`` → (logits, cache), cache updated in place
   * ``init_cache(batch, max_len, dtype, device)`` → zeroed cache
 
-The decoder-only families (dense, MoE, SSM, hybrid, VLM) are ported; the
-encoder-decoder (``audio``) family raises ``NotImplementedError`` (ROADMAP
-Queue 1).
+Every family is ported: the decoder-only ones (dense, MoE, SSM, hybrid,
+VLM) through ``transformer``, the encoder-decoder (``audio``) one through
+``whisper``, whose batches carry ``frames`` and whose ``prefill`` ignores
+``cache_len`` (its self-cache is as long as the prompt, as in the
+reference).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Any, Callable
 
 import torch
 
-from . import transformer as impl
+from . import transformer, whisper
 from .layers import softmax_xent
 
 PyTree = Any
@@ -52,11 +54,7 @@ def _lm_loss(forward, cfg):
 
 
 def model_for(cfg) -> Model:
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (audio) family is not ported yet; "
-            "it is queued in ROADMAP.md (Queue 1)"
-        )
+    impl = whisper if cfg.family == "audio" else transformer
     fwd = impl.forward
 
     def init(gen: torch.Generator):

@@ -107,13 +107,16 @@ def test_kernel_rejects_unsupported_head_dim_and_dtype(hd, dtype):
 
 
 def test_kernel_takes_every_head_dim_the_configs_use():
-    """Every attention config's head dim but whisper_medium's (24, audio,
-    not ported) is a kernel instance."""
+    """Every attention config's head dim is a kernel instance, whisper_medium's
+    64 included, but whisper_medium_smoke's 24 (not a multiple of 16), whose
+    config attends through ``full``."""
     from repro_torch.configs.base import ARCH_IDS
     from repro_torch.configs import get_config, get_smoke
 
-    hds = {get(a).hd for a in ARCH_IDS for get in (get_config, get_smoke)
-           if get(a).n_heads and get(a).family != "audio"}
+    cfgs = [get(a) for a in ARCH_IDS for get in (get_config, get_smoke) if get(a).n_heads]
+    off = [c for c in cfgs if c.hd not in tfa.SUPPORTED_HD]
+    assert [(c.name, c.hd, c.attn_impl) for c in off] == [("whisper_medium_smoke", 24, "full")]
+    hds = {c.hd for c in cfgs if c not in off}
     assert hds <= set(tfa.SUPPORTED_HD)
     assert hds == {16, 32, 48, 64, 128, 160, 256}
     for hd in tfa.SUPPORTED_HD:
