@@ -69,6 +69,18 @@ drives the port's two paths:
     one repeated batch; peak memory with and without remat; a profiled
     step;
   - ``ops.flash_attention`` under autograd on the card must refuse.
+* the device-plane weight broadcast (phase ``broadcast``; no kernel, as the
+  reference broadcasts through XLA collectives):
+  - ``granite_moe_1b``'s full weights as one bf16 image of 32 blocks,
+    streamed from position 0 to the 7 others of an (8, 1) mesh on the card
+    by ``naive``, ``allgather``, ``binomial``, ``pipelined`` (the FaaSNet
+    tree) and int8 ``pipelined``, from sentinel-filled buffers: every
+    position bit-equal to the root, the returned tree to the cast params
+    (int8: to the dequantized image), rounds, serialized and copied bytes
+    as the reference's round functions give them; each timed by CUDA
+    events beside its HBM bound and the link model at an H100's NVLink;
+  - the smoke config on a (4, 2) mesh, card against CPU, bit for bit;
+  - ``examples/torch_elastic_train.py`` on the card.
 
 It then times the kernels (K1's packed engine route beside its tensor
 wrapper; K2 and K4 with a cold L2, rotating through operand sets over
@@ -209,6 +221,31 @@ TRAIN_PARITY_ARCHS = ("deepseek_7b", "granite_moe_1b", "mamba2_130m", "jamba_v01
 TRAIN_PARITY = dict(seq_len=32, batch=4, n_micro=2, lr=1e-3)
 TRAIN_FULL = dict(steps=8, seq_len=512, batch=8, n_micro=2)
 TRAIN_FULL_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
+
+# The device-plane weight broadcast (phase broadcast).  (a) granite_moe_1b's
+# full weights, float32 drawn on the card from seed 0, as one bf16 image of
+# 32 blocks (83,414,272 bytes each, no padding) streamed from position 0 to
+# the 7 others of an (8, 1) mesh on one card, by every schedule; rounds,
+# serialized bytes and bytes copied as reckoned from the JAX package's own
+# round functions (allgather copies as implemented: its (8, n) gather, then
+# row 0 to the 7 other positions; the int8 run adds 224 four-byte scale
+# sends).  (b) granite_moe_1b's smoke config plus a 3-element leaf (so the
+# image is padded) on a (4, 2) mesh and 4 blocks, card against CPU.
+BCAST_MESH = (8, 1)
+BCAST_BLOCKS = 32
+BCAST_PARAMS = 1_334_628_352
+BCAST_EXPECT = {  # (schedule, compress): (rounds, serialized bytes, bytes copied on one card)
+    ("naive", False): (7, 18_684_796_928, 18_684_796_928),
+    ("allgather", False): (1, 21_354_053_632, 40_038_850_560),
+    ("binomial", False): (3, 8_007_770_112, 18_684_796_928),
+    ("pipelined", False): (66, 5_505_341_952, 18_684_796_928),
+    ("pipelined", True): (66, 2_752_670_976, 9_342_398_464 + 224 * 4),
+}
+BCAST_REPS = 5
+BCAST_SMOKE = dict(mesh=(4, 2), n_blocks=4)
+# one direction of an H100 SXM's NVLink 4 (900 GB/s bidirectional, data
+# sheet): the link of the reference's serialized-bytes time model
+H100_NVLINK_ONE_WAY = 450e9
 
 # K2 and K4 are timed with a cold L2: each call rotates through operand sets
 # that together exceed this, so no launch finds its operands in the 50 MB L2
@@ -2123,6 +2160,205 @@ def phase_train() -> dict:
     return out
 
 
+def sentinel_buffer(like, device):
+    """A non-root position's buffer before the broadcast, every byte 0xFF
+    (NaN in bf16 and f32, -1 in int8), in place of ``torch.empty``."""
+    import torch
+
+    buf = torch.empty(like.shape, dtype=like.dtype, device=device)
+    buf.view(torch.uint8).fill_(0xFF)
+    return buf
+
+
+def same_bytes(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def positions_equal_root(columns) -> bool:
+    """Every position of every column bit-equal to its column's root."""
+    return all(same_bytes(b, col[0]) for col in columns for b in col[1:])
+
+
+def broadcast_variant(params, mesh, schedule: str, compress: bool) -> dict:
+    """One schedule at full width: a checked run from sentinel buffers, then
+    an unpatched run timed by the host clock with its peak memory, then the
+    position-buffer copies alone timed by CUDA events."""
+    import torch
+
+    from repro_torch.distributed import broadcast as bc
+    from repro_torch.models.params import tree_leaves_with_path
+    from repro_torch.optim.compress import dequantize_int8, quantize_int8
+
+    rounds, ser, copied_want = BCAST_EXPECT[(schedule, compress)]
+    kw = dict(schedule=schedule, n_blocks=BCAST_BLOCKS, compress=compress, return_buffers=True)
+    with patched(bc, "_stale_buffer", lambda _: sentinel_buffer):
+        res, rep, (bufs, scale_bufs) = bc.tree_broadcast(params, mesh, **kw)
+    check((rep.rounds, rep.serialized_bytes) == (rounds, ser),
+          f"broadcast {schedule}: rounds {rep.rounds}, serialized {rep.serialized_bytes}")
+    check(positions_equal_root(bufs + (scale_bufs or [])),
+          f"broadcast {schedule}: a position differs from the root")
+    leaves = [x for _, x in tree_leaves_with_path(params)]
+    got = [x for _, x in tree_leaves_with_path(res)]
+    if compress:
+        flat, spec = bc.flatten_pytree(params, pad_to=BCAST_BLOCKS)
+        q, scale = quantize_int8(flat.view(BCAST_BLOCKS, -1))
+        check(same_bytes(bufs[0][0], q.reshape(-1)) and same_bytes(scale_bufs[0][0], scale),
+              "broadcast int8: the root's payload or scales differ from quantize_int8")
+        del flat
+        want = bc.unflatten_pytree(dequantize_int8(q, scale).reshape(-1), spec)
+        want = [x for _, x in tree_leaves_with_path(want)]
+        del q
+    else:
+        want = [x.to(torch.bfloat16).to(x.dtype) for x in leaves]
+    check(len(got) == len(want) and all(same_bytes(g, w) for g, w in zip(got, want)),
+          f"broadcast {schedule} compress={compress}: the returned tree differs")
+    del res, bufs, scale_bufs, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res, rep, (bufs, scale_bufs) = bc.tree_broadcast(params, mesh, **kw)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del res
+    dp = len(bufs[0])
+    info = {"binomial": bc.binomial_rounds(dp),
+            "pipelined": bc.faasnet_rounds(dp, BCAST_BLOCKS)}.get(schedule)
+
+    def copies():
+        return sum(bc.broadcast_buffers(col, dp=dp, schedule=schedule, n_blocks=BCAST_BLOCKS,
+                                        rounds_info=info) for col in bufs + (scale_bufs or []))
+
+    copied = copies()  # warm
+    check(copied == copied_want, f"broadcast {schedule}: {copied} bytes copied")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(BCAST_REPS):
+        start.record()
+        copies()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    del bufs, scale_bufs
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = float(np.median(times))
+    bound = 2 * copied / HBM_BYTES_PER_S * 1e3
+    return dict(schedule=schedule, compress=compress, rounds=rep.rounds, dp=rep.dp,
+                n_blocks=rep.n_blocks, payload_bytes=rep.payload_bytes,
+                serialized_bytes=rep.serialized_bytes, bytes_copied=copied,
+                device_ms=ms, device_ms_reps=times, hbm_bound_ms=bound,
+                achieved_bytes_per_s=2 * copied / (ms * 1e-3),
+                modeled_ms_h100_nvlink_one_way=rep.modeled_time_s(H100_NVLINK_ONE_WAY) * 1e3,
+                host_ms_tree_broadcast=host, peak_memory_bytes=peak,
+                memory_before_bytes=base)
+
+
+def broadcast_full_width() -> dict:
+    """granite_moe_1b's full weights to the 8 positions of an (8, 1) mesh on
+    one card, by every schedule and by int8 ``pipelined``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_for
+    from repro_torch.models.params import tree_leaves_with_path
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("granite_moe_1b")
+    params = model_for(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    n = sum(x.numel() for _, x in tree_leaves_with_path(params))
+    check(n == BCAST_PARAMS, f"granite_moe_1b has {n} parameters")
+    mesh = make_mesh(BCAST_MESH, ("data", "model"), device="cuda")
+    runs = [broadcast_variant(params, mesh, s, c) for s, c in BCAST_EXPECT]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, params=n, mesh=list(BCAST_MESH), n_blocks=BCAST_BLOCKS,
+                block_bytes=2 * n // BCAST_BLOCKS, link_bw=H100_NVLINK_ONE_WAY,
+                hbm_bytes_per_s=HBM_BYTES_PER_S, runs=runs)
+
+
+def broadcast_smoke_vs_cpu() -> dict:
+    """The smoke config (and a 3-element leaf, so the image is padded) on a
+    (4, 2) mesh: every position's buffers and the returned tree bit-equal on
+    the card and on the CPU, for every variant."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import broadcast as bc
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_for
+    from repro_torch.models.params import tree_leaves_with_path, tree_map
+
+    gen = torch.Generator().manual_seed(0)
+    params = {"model": model_for(get_smoke("granite_moe_1b")).init(gen),
+              "odd": torch.randn(3, generator=gen)}
+    _, spec = bc.flatten_pytree(params, pad_to=BCAST_SMOKE["n_blocks"])
+    check(spec.pad > 0, "smoke broadcast: the image is not padded")
+    runs = {}
+    for schedule, compress in BCAST_EXPECT:
+        got = {}
+        for dev in ("cpu", "cuda"):
+            mesh = make_mesh(BCAST_SMOKE["mesh"], ("data", "model"), device=dev)
+            p = tree_map(lambda x: x.to(dev), params)
+            with patched(bc, "_stale_buffer", lambda _: sentinel_buffer):
+                res, rep, (bufs, scale_bufs) = bc.tree_broadcast(
+                    p, mesh, schedule=schedule, n_blocks=BCAST_SMOKE["n_blocks"],
+                    compress=compress, return_buffers=True)
+            got[dev] = ([x.cpu() for _, x in tree_leaves_with_path(res)],
+                        [b.cpu() for col in bufs + (scale_bufs or []) for b in col], rep)
+            check(positions_equal_root(bufs + (scale_bufs or [])),
+                  f"smoke broadcast {schedule} on {dev}: a position differs from the root")
+        (lc, bc_, rc), (lg, bg, rg) = got["cpu"], got["cuda"]
+        equal = (rc == rg and len(bc_) == len(bg) and all(map(same_bytes, bc_, bg))
+                 and len(lc) == len(lg) and all(map(same_bytes, lc, lg)))
+        check(equal, f"smoke broadcast {schedule} compress={compress}: card and CPU differ")
+        runs[f"{schedule}{'_int8' if compress else ''}"] = dict(
+            rounds=rg.rounds, serialized_bytes=rg.serialized_bytes, buffers=len(bg),
+            equal_to_cpu=equal)
+    return dict(arch="granite_moe_1b_smoke", leaves=len(spec.sizes), total=spec.total, pad=spec.pad,
+                **BCAST_SMOKE, runs=runs)
+
+
+def elastic_example() -> dict:
+    """``examples/torch_elastic_train.py`` on the card, in a process of its own."""
+    proc = subprocess.run([sys.executable, "examples/torch_elastic_train.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"torch_elastic_train.py exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    resumed = [ln for ln in lines if "resumed from step" in ln]
+    check(lines[-1] == "OK" and len(resumed) == 1, "torch_elastic_train.py did not end with OK")
+    words = resumed[0].split()
+    step, loss = int(words[3].rstrip(",")), float(words[-1])
+    check(step == 10 and np.isfinite(loss), f"elastic example: {resumed[0]}")
+    return dict(resumed_from=step, loss_20=loss,
+                section_3=[ln.strip() for ln in lines if "serialized" in ln or "link model" in ln])
+
+
+def phase_broadcast() -> dict:
+    """The device-plane weight broadcast: (a) granite_moe_1b's full weights,
+    (b) the smoke config card against CPU, (c) the elastic-training example on
+    the card.  No kernel launches on this path."""
+    from repro_torch import kernels
+
+    kernels.reset_launches()
+    out = {"full_width": broadcast_full_width(), "smoke_vs_cpu": broadcast_smoke_vs_cpu(),
+           "elastic_example": elastic_example()}
+    launches = launch_counts()
+    check(not any(launches.values()), f"a kernel launched on the broadcast path: {launches}")
+    out["launches"] = launches
+    emit("broadcast", **out)
+    return out
+
+
 def time_k3(bh: int, t: int, hd: int, dtype: str = "bfloat16") -> dict:
     """K3 at one shape: the bf16 tensor-core instance or the float32 SIMT one,
     beside causal SDPA on the same inputs."""
@@ -2365,6 +2601,7 @@ def main() -> int:
     whisper = timed(phase_serve_whisper_medium)
     cold = timed(phase_cold_start)
     timed(phase_train)
+    timed(phase_broadcast)
     times = timed(phase_timings, giga)
 
     src = "src/repro_torch/kernels/csrc/cap_chain.cu"

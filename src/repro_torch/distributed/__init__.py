@@ -1,3 +1,4 @@
-"""Host-plane coordination of the training fleet: elastic membership
-(:mod:`.elastic`) and fault tolerance (:mod:`.fault`).  Import the modules
-themselves; this package imports nothing on its own."""
+"""The training fleet: host-plane elastic membership (:mod:`.elastic`) and
+fault tolerance (:mod:`.fault`), and the device-plane weight broadcast
+(:mod:`.broadcast`).  Import the modules themselves; this package imports
+nothing on its own."""

@@ -18,7 +18,10 @@ PyTree = Any
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
-    """Apply ``fn`` to the leaves of ``tree`` (and the matching leaves of ``rest``)."""
+    """Apply ``fn`` to the leaves of ``tree`` (and the matching leaves of ``rest``);
+    ``None`` is an empty subtree, as in ``jax.tree.map``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
@@ -66,11 +69,10 @@ def tree_unflatten(like: PyTree, leaves: list) -> PyTree:
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
     """One numpy array (bfloat16 as ``ml_dtypes`` gives it, too) as a tensor."""
-    arr = np.asarray(arr)
+    arr = np.array(arr, order="C")  # a copy; unlike ascontiguousarray it keeps 0-d leaves 0-d
     if arr.dtype.name == "bfloat16":
-        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
-        return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:

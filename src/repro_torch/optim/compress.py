@@ -6,7 +6,7 @@ int8 with an f32 scale per row — 2× wire reduction on bf16 payloads at
 ~1e-2 relative error, which is ample for weight broadcast and for
 error-feedback-compensated gradient all-reduce.  ``torch.round`` rounds
 half to even, as ``jnp.round`` does, so payloads and scales equal the JAX
-package's.
+package's, on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -17,7 +17,9 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x (..., n) -> (int8 (..., n), f32 scale (...,))."""
     x32 = x.to(torch.float32)
     absmax = torch.amax(torch.abs(x32), dim=-1)
-    scale = torch.clamp(absmax / 127.0, min=1e-12)
+    # a tensor divisor: CUDA divides by a CPU scalar as a product with its
+    # reciprocal, which can differ from the quotient in the last bit
+    scale = torch.clamp(absmax / torch.full_like(absmax, 127.0), min=1e-12)
     q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127).to(torch.int8)
     return q, scale
 

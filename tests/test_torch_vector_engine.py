@@ -261,7 +261,8 @@ def test_port_imports_neither_jax_nor_reference():
              + sorted((ROOT / "examples").glob("torch_*.py"))
              + sorted((ROOT / "scripts").glob("torch_*.py")))
     assert len(files) > 10
-    assert {"torch_quickstart.py", "torch_burst_serving.py"} <= {f.name for f in files}
+    assert {"torch_quickstart.py", "torch_burst_serving.py",
+            "torch_elastic_train.py"} <= {f.name for f in files}
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, (path, bad)
