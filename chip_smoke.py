@@ -81,6 +81,19 @@ drives the port's two paths:
     events beside its HBM bound and the link model at an H100's NVLink;
   - the smoke config on a (4, 2) mesh, card against CPU, bit for bit;
   - ``examples/torch_elastic_train.py`` on the card.
+* the mesh layer (phase ``mesh``): ``granite_moe_1b`` at full width under
+  the production (16, 16) mesh, whose 256 positions are the one card (dp
+  16, so each MoE layer routes 16 shards of tokens apart):
+  - one MoE layer, 4 x 512 tokens in float32: the per-shard slots equal
+    ``route_topk`` on the CPU from the card's logits, bit for bit; ``y``
+    within 2e-4 of max|y| of the port's CPU ``apply_moe``; dropped pairs
+    per shard against the one-device branch;
+  - two bf16 prefills of 4 x 512 tokens through K3 (launches counted),
+    a profiled prefill, and the float32 check of K3 against ``chunked``;
+  - phase train's recipe inside the context, timed, profiled and beside
+    phase train's numbers; the mesh step outside the context equal to the
+    ``mesh=None`` step bit for bit; a float32 smoke step in the context on
+    the card against the CPU.
 
 It then times the kernels (K1's packed engine route beside its tensor
 wrapper; K2 and K4 with a cold L2, rotating through operand sets over
@@ -221,6 +234,24 @@ TRAIN_PARITY_ARCHS = ("deepseek_7b", "granite_moe_1b", "mamba2_130m", "jamba_v01
 TRAIN_PARITY = dict(seq_len=32, batch=4, n_micro=2, lr=1e-3)
 TRAIN_FULL = dict(steps=8, seq_len=512, batch=8, n_micro=2)
 TRAIN_FULL_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
+
+# The mesh layer (phase mesh): granite_moe_1b at full width under the port's
+# production (16, 16) mesh, a description whose 256 positions are the one
+# card, so dp = 16 and every MoE layer routes 16 shards of consecutive
+# tokens apart, each at its own capacity.  (a) One MoE layer, 4 x 512
+# tokens, float32: the card's per-shard slots equal route_topk on the CPU
+# from the card's logits, bit for bit; y within MESH_MOE_TOL x max|y| of the
+# port's CPU apply_moe in the same context.  (b) Two bf16 prefills of 4 x
+# 512 tokens through K3 (its launches counted), and the float32 check of
+# pallas against chunked.  (c) Phase train's recipe (TRAIN_FULL) inside the
+# context; the mesh step outside it equal to the mesh=None step bit for bit;
+# a float32 smoke step inside it on the card against the CPU, at phase
+# train's parity limits.
+MESH_TOKENS = dict(batch=4, seq=512)
+# K3 on granite_moe_1b's prefill, served and under the mesh: 4 prompts x 16
+# heads, T 512, hd 64
+K3_GRANITE = (MESH_TOKENS["batch"] * 16, MESH_TOKENS["seq"], 64)
+MESH_MOE_TOL = 2e-4
 
 # The device-plane weight broadcast (phase broadcast).  (a) granite_moe_1b's
 # full weights, float32 drawn on the card from seed 0, as one bf16 image of
@@ -1077,10 +1108,12 @@ def phase_k3_vs_plain() -> dict:
     from repro_torch.kernels.ref import flash_attention_tiled_ref
 
     worst, worst_tiled, per_shape = {}, 0.0, []
-    # the served shapes in bf16: whisper_medium's decoder prefill (one q
-    # tile against one diagonal k tile) and deepseek_7b's, last
+    # the served shapes in bf16: granite_moe_1b's prefill (served and under
+    # the mesh), whisper_medium's decoder prefill (one q tile against one
+    # diagonal k tile) and deepseek_7b's, last
+    served = {"granite_moe_1b": (*K3_GRANITE, None), "whisper_medium": (*K3_WHISPER, None)}
     cases = [(shape, dt) for dt in ("bfloat16", "float32") for shape in K3_SWEEP]
-    cases += [((*K3_WHISPER, None), "bfloat16"), (K3_SERVE, "bfloat16")]
+    cases += [(shape, "bfloat16") for shape in served.values()] + [(K3_SERVE, "bfloat16")]
     for (bh, t, hd, window), dt in cases:
         name = f"{(bh, t, hd, window)} {dt}"
         q, k, v = k3_operands(bh, t, hd, dt, seed=bh * 1000 + t + hd)
@@ -1104,9 +1137,13 @@ def phase_k3_vs_plain() -> dict:
         per_shape.append(row)
     emit("k3_vs_plain", tolerances=K3_TOL, rel_bound=K3_REL, tiled_bound=K3_TILED, worst=worst,
          worst_vs_tiled=worst_tiled, shapes=per_shape)
-    return {"worst": worst, "serve_err": per_shape[-1]["max_abs_err"],
-            "whisper_err": per_shape[-2]["max_abs_err"],
-            "whisper_err_vs_tiled": per_shape[-2]["max_abs_err_vs_tiled"]}
+    rows = {(r["bh"], r["t"], r["hd"], r["window"], r["dtype"]): r for r in per_shape}
+    out = {"worst": worst, "serve_err": per_shape[-1]["max_abs_err"]}
+    for arch, shape in served.items():
+        row = rows[(*shape, "bfloat16")]
+        out[arch] = {"max_abs_err": row["max_abs_err"],
+                     "max_abs_err_vs_tiled": row["max_abs_err_vs_tiled"]}
+    return out
 
 
 def within(got, want, atol: float, rtol: float) -> tuple[bool, float]:
@@ -1665,15 +1702,20 @@ def device_summary(prof, wall_s: float, top: int) -> dict:
     import torch
 
     by_name: dict = {}
-    n = 0
+    n = n_scans = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
             n += 1
+            n_scans += "scan" in e.name.lower()
     busy = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    # every device kernel with "scan" in its name: in granite_moe_1b's phases
+    # these are the router's cumsums; elsewhere other cumsums and K5 count too
+    scan_ms = sum(ms for name, ms in by_name.items() if "scan" in name.lower())
     return dict(wall_ms=wall_s * 1e3, device_busy_ms=busy, idle_share=1 - busy / (wall_s * 1e3),
-                kernels=n, top_ms=[[name[:80], ms] for name, ms in ranked])
+                kernels=n, top_ms=[[name[:80], ms] for name, ms in ranked],
+                scan_kernels_ms=scan_ms, scan_kernel_calls=n_scans)
 
 
 def pallas_vs_chunked(cfg, params, prompts, dtype: str, extra=None) -> dict:
@@ -1931,22 +1973,25 @@ def phase_cold_start() -> dict:
     return out
 
 
-def train_parity(arch: str) -> dict:
+def train_parity(arch: str, mesh=None) -> dict:
     """One float32 train step of ``arch``'s smoke config on the card and on
-    the CPU, from params drawn on the CPU from seed 0."""
+    the CPU, from params drawn on the CPU from seed 0; with ``mesh``, both
+    steps are the mesh step inside its sharding context."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_smoke
     from repro_torch.data.synthetic import make_batch
+    from repro_torch.distributed.api import sharding_context
+    from repro_torch.distributed.sharding import ShardingRules
     from repro_torch.models.params import tree_leaves_with_path, tree_map
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import init_train_state, make_train_step
 
     cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
     lr = TRAIN_PARITY["lr"]
-    _, step = make_train_step(cfg, opt=AdamWConfig(lr=lr, warmup_steps=0, total_steps=10),
+    _, step = make_train_step(cfg, mesh, opt=AdamWConfig(lr=lr, warmup_steps=0, total_steps=10),
                               n_micro=TRAIN_PARITY["n_micro"])
     runs = {}
     for dev in ("cpu", "cuda"):
@@ -1954,14 +1999,17 @@ def train_parity(arch: str) -> dict:
         params, opt_state = tree_map(lambda x: x.to(dev), state)
         batch = make_batch(cfg, TRAIN_PARITY["seq_len"], TRAIN_PARITY["batch"], kind="train",
                            seed=1, device=dev)
-        _, opt_state, metrics = step(params, opt_state, batch)
+        with (sharding_context(mesh, ShardingRules(cfg, mesh).logical_mapping())
+              if mesh is not None else contextlib.nullcontext()):
+            _, opt_state, metrics = step(params, opt_state, batch)
         runs[dev] = (float(metrics["loss"]), float(metrics["grad_norm"]),
                      [x.cpu() for _, x in tree_leaves_with_path(opt_state["master"])])
     (lc, gc_, mc), (lg, gg, mg) = runs["cpu"], runs["cuda"]
     loss_rel, gnorm_rel = abs(lg - lc) / abs(lc), abs(gg - gc_) / gc_
     master_err = max(float((a - b).abs().max()) for a, b in zip(mc, mg))
     out = dict(arch=cfg.name, remat=cfg.remat, loss=lg, loss_rel=loss_rel,
-               grad_norm=gg, grad_norm_rel=gnorm_rel, master_max_abs_diff=master_err)
+               grad_norm=gg, grad_norm_rel=gnorm_rel, master_max_abs_diff=master_err,
+               mesh=None if mesh is None else dict(mesh.shape))
     check(loss_rel <= 1e-5, f"train parity {arch}: loss {lg} on cuda vs {lc} on cpu")
     check(gnorm_rel <= 1e-4, f"train parity {arch}: grad_norm {gg} on cuda vs {gc_} on cpu")
     check(master_err <= 2 * lr + 1e-6, f"train parity {arch}: master differs by {master_err}")
@@ -2157,6 +2205,227 @@ def phase_train() -> dict:
               "ops.flash_attention under no_grad")
     out["autograd_refused"] = refused
     emit("train", **out)
+    return out
+
+
+def mesh_moe_layer(mesh, mapping) -> dict:
+    """(a) One granite_moe_1b MoE layer at full width, float32, inside the
+    context: the card's per-shard slots against route_topk on the CPU from
+    the card's own logits, y against the port's CPU apply_moe."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.api import sharding_context
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_map
+
+    cfg = get_config("granite_moe_1b")
+    m = cfg.moe
+    b, t = MESH_TOKENS["batch"], MESH_TOKENS["seq"]
+    n_tok = b * t
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = moe.init_moe(gen, cfg)
+    x = torch.randn(b, t, cfg.d_model, generator=gen, device="cuda")
+    seen = []
+
+    def record(fn):
+        def run(logits, k, capacity):
+            out = fn(logits, k, capacity)
+            seen.append((logits.cpu(), out[0].cpu(), capacity))
+            return out
+        return run
+
+    with sharding_context(mesh, mapping):
+        dp = moe.data_shards(n_tok)
+        with patched(moe, "route_topk", record):
+            y, aux = moe.apply_moe(p, x, cfg)
+            torch.cuda.synchronize()
+        y_cpu, aux_cpu = moe.apply_moe(tree_map(lambda a: a.cpu(), p), x.cpu(), cfg)
+    check(len(seen) == 1, f"route_topk calls: {len(seen)}")
+    (logits, slots, cap), = seen
+    check(dp > 1 and tuple(logits.shape) == (dp, n_tok // dp, m.n_experts),
+          f"per-shard routing not taken: dp {dp}, logits {tuple(logits.shape)}")
+    mismatched = sum(int((moe.route_topk(logits[i], m.top_k, cap)[0] != slots[i]).sum())
+                     for i in range(dp))
+    check(mismatched == 0, f"{mismatched} per-shard slots differ from route_topk on the CPU")
+    shard_drop = (slots == m.n_experts * cap).reshape(n_tok, m.top_k)
+    g_cap = max(int(n_tok * m.top_k / m.n_experts * m.capacity_factor), m.top_k)
+    g_slot = moe.route_topk(logits.reshape(n_tok, m.n_experts), m.top_k, g_cap)[0]
+    global_drop = g_slot == m.n_experts * g_cap
+    err = float((y.cpu() - y_cpu).abs().max())
+    scale = float(y_cpu.abs().max())
+    check(bool(torch.isfinite(y).all()) and err <= MESH_MOE_TOL * scale,
+          f"MoE layer under the mesh: card vs CPU {err} at max |y| {scale}")
+    return dict(tokens=n_tok, dp=dp, capacity_per_shard=cap, capacity_global=g_cap,
+                choices=n_tok * m.top_k, slots_mismatched=mismatched,
+                dropped_per_shard=int(shard_drop.sum()), dropped_global=int(global_drop.sum()),
+                dropped_both=int((shard_drop & global_drop).sum()),
+                dropped_by_shard=shard_drop.reshape(dp, -1).sum(1).tolist(),
+                y_max_abs_diff=err, y_max_abs=scale, limit=MESH_MOE_TOL * scale,
+                aux=float(aux), aux_cpu=float(aux_cpu), aux_abs_diff=abs(float(aux) - float(aux_cpu)))
+
+
+def mesh_prefill(mesh, mapping) -> dict:
+    """(b) Two bf16 prefills of 4 x 512 tokens inside the context through K3
+    (the main path: every kernel count set to 0 just before, read just
+    after), then a profiled prefill and K3 against ``chunked`` in float32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.api import sharding_context
+    from repro_torch.models import model_for, moe
+
+    cfg = dataclasses.replace(get_config("granite_moe_1b"), attn_impl="pallas")
+    model = model_for(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    prompts = serve_prompts(cfg, MESH_TOKENS["batch"], MESH_TOKENS["seq"], seed=0)
+    toks = torch.from_numpy(np.stack(prompts).astype(np.int32)).cuda()
+    drops = {"dropped": torch.zeros((), dtype=torch.int64, device="cuda"), "choices": 0,
+             "calls": 0, "shards": set(), "logits": []}
+
+    def count(fn):
+        def run(logits, k, capacity):
+            slot, gate, eids, aux = fn(logits, k, capacity)
+            drops["dropped"] += (slot == logits.shape[-1] * capacity).sum()
+            drops["choices"] += slot.numel()
+            drops["calls"] += 1
+            drops["shards"].add(logits.shape[0] if logits.dim() == 3 else 1)
+            if drops["calls"] <= cfg.n_layers:  # the first prefill's, for the one-device drops
+                drops["logits"].append(logits.clone())
+            return slot, gate, eids, aux
+        return run
+
+    walls = []
+    with sharding_context(mesh, mapping):
+        with patched(moe, "route_topk", count):
+            kernels.reset_launches()
+            for _ in range(2):
+                t0 = time.perf_counter()
+                logits, _ = model.prefill(params, {"tokens": toks}, cache_len=toks.shape[1] + 1)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            launches = launch_counts()
+        check(bool(torch.isfinite(logits.float()).all()), "mesh prefill logits finite")
+        k3 = launches["flash_attention_bhtd"]
+        check(k3 == 2 * cfg.n_layers and k3 > 0, f"K3 launches on the mesh prefill: {k3}")
+        check(drops["shards"] == {mesh.shape["data"]}, f"routed shards {drops['shards']}")
+        prof = profile_prefill_and_decode(model, params, prompts)
+        f32 = f32_pallas_vs_chunked(cfg, params, prompts)
+    # the first prefill's router logits routed as the one-device branch would
+    m = cfg.moe
+    n_tok = toks.numel()
+    g_cap = max(int(n_tok * m.top_k / m.n_experts * m.capacity_factor), m.top_k)
+    one_device = sum(int((moe.route_topk(lg.reshape(n_tok, -1), m.top_k, g_cap)[0]
+                          == m.n_experts * g_cap).sum()) for lg in drops["logits"])
+    del params, drops["logits"]
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, batch=MESH_TOKENS["batch"], prompt_len=MESH_TOKENS["seq"],
+                compute_dtype=cfg.compute_dtype, prefill_wall_s=walls, launches=launches,
+                k3_launches=k3, shards=sorted(drops["shards"]), router_calls=drops["calls"],
+                choices=drops["choices"], dropped=int(drops["dropped"]),
+                dropped_share=int(drops["dropped"]) / max(drops["choices"], 1),
+                first_prefill_dropped_one_device_branch=one_device,
+                first_prefill_choices=n_tok * m.top_k * cfg.n_layers,
+                profile=prof, f32_check=f32)
+
+
+def mesh_train(mesh, mapping) -> dict:
+    """(c) granite_moe_1b's full-width step with phase train's recipe: the mesh
+    step outside the context against the mesh=None step, bit for bit; then
+    TRAIN_FULL's steps inside the context, each synchronised and timed, over
+    fresh batches, its peak memory and a profiled step; then the float32
+    smoke step inside the context, card against CPU."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distributed.api import sharding_context
+    from repro_torch.models.params import tree_leaves_with_path
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_config("granite_moe_1b")
+    opt = AdamWConfig(**TRAIN_FULL_OPT)
+    seq, bsz, n_micro = TRAIN_FULL["seq_len"], TRAIN_FULL["batch"], TRAIN_FULL["n_micro"]
+
+    def fresh_state():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+
+    def leaves(tree):
+        return [x for _, x in tree_leaves_with_path(tree)]
+
+    batch = make_batch(cfg, seq, bsz, kind="train", seed=0, device="cuda")
+    params, opt_state = fresh_state()
+    _, plain = make_train_step(cfg, None, opt=opt, n_micro=n_micro)
+    params, opt_state, m = plain(params, opt_state, batch)
+    want = ([x.clone() for x in leaves(params)], [x.clone() for x in leaves(opt_state["master"])],
+            {k: m[k].clone() for k in ("loss", "grad_norm", "ce_last")})
+    del params, opt_state, m, plain
+    params, opt_state = fresh_state()
+    _, step = make_train_step(cfg, mesh, opt=opt, n_micro=n_micro)
+    params, opt_state, m = step(params, opt_state, batch)
+    same = (all(torch.equal(a, b) for a, b in zip(want[0], leaves(params)))
+            and all(torch.equal(a, b) for a, b in zip(want[1], leaves(opt_state["master"])))
+            and all(torch.equal(want[2][k], m[k]) for k in want[2]))
+    check(same, "the mesh step outside the context differs from the mesh=None step")
+    del want
+
+    walls, losses = [], []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with sharding_context(mesh, mapping):
+        kernels.reset_launches()
+        for s in range(TRAIN_FULL["steps"]):
+            batch = make_batch(cfg, seq, bsz, kind="train", seed=s + 1, device="cuda")
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_train_step(step, params, opt_state, batch)
+    check(all(np.isfinite(losses)), f"granite losses under the mesh {losses}")
+    check(not any(launches.values()), f"a kernel launched on the mesh training path: {launches}")
+    del params, opt_state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = bsz * seq
+    return dict(arch=cfg.name, params=cfg.param_count(), remat=cfg.remat, attn_impl=cfg.attn_impl,
+                compute_dtype=cfg.compute_dtype, **TRAIN_FULL, opt=TRAIN_FULL_OPT,
+                mesh_step_without_context_bit_equal=same, launches=launches, losses=losses,
+                step_wall_s=walls, step_wall_mean_s_after_first=sum(walls[1:]) / len(walls[1:]),
+                tokens_per_s=tokens * len(walls[1:]) / sum(walls[1:]),
+                peak_memory_bytes_steps=peak, profile=prof,
+                parity_f32_smoke=train_parity("granite_moe_1b", mesh))
+
+
+def phase_mesh(train: dict) -> dict:
+    """granite_moe_1b at full width under the production (16, 16) mesh on the
+    card: (a) one MoE layer, (b) the prefill through K3, (c) the train step;
+    each beside phase train's numbers from this run."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingRules, axis_size, data_axes
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh()
+    mapping = ShardingRules(get_config("granite_moe_1b"), mesh).logical_mapping()
+    check(axis_size(mesh, data_axes(mesh)) == 16 and mapping == {"data": ("data",), "model": ("model",)},
+          f"production mesh {mesh.shape}, mapping {mapping}")
+    full = train["full_width"]
+    out = {"mesh": dict(mesh.shape), "moe_layer": mesh_moe_layer(mesh, mapping),
+           "prefill": mesh_prefill(mesh, mapping), "train": mesh_train(mesh, mapping)}
+    out["train_phase"] = {k: full[k] for k in (
+        "step_wall_mean_s_after_first", "tokens_per_s", "peak_memory_bytes_step_remat_block",
+        "profile")}
+    emit("mesh", **out)
     return out
 
 
@@ -2548,6 +2817,7 @@ def phase_timings(giga: dict) -> dict:
         "k3_f32": time_k3(*K3_SERVE[:3], dtype="float32"),
         "k3_f32_hd256": time_k3(*K3_HD256, dtype="float32"),
         "k3_whisper": time_k3(*K3_WHISPER),
+        "k3_granite": time_k3(*K3_GRANITE),
         "k4": time_k4(*K4_SERVE[::2], sweep=True),
         "k4_other": [time_k4(bh, hd, sweep=True) for bh, hd in K4_OTHER],
         "k5": time_k5(),
@@ -2600,7 +2870,8 @@ def main() -> int:
     granite = timed(phase_serve_granite_moe_1b)
     whisper = timed(phase_serve_whisper_medium)
     cold = timed(phase_cold_start)
-    timed(phase_train)
+    train = timed(phase_train)
+    mesh = timed(phase_mesh, train)
     timed(phase_broadcast)
     times = timed(phase_timings, giga)
 
@@ -2639,9 +2910,11 @@ def main() -> int:
          "on_main_path": True, "shape": [k3_t["bh"], k3_t["t"], k3_t["hd"]], "dtype": "bfloat16",
          "wrapper_ms": k3_t["wrapper_ms"], "granite_moe_1b_launches": granite["k3_launches"],
          "whisper_medium_launches": whisper["k3_launches"],
-         "whisper_medium": {**times["k3_whisper"], "max_abs_err": k3_check["whisper_err"],
-                            "max_abs_err_vs_tiled": k3_check["whisper_err_vs_tiled"]},
-         "cold_start_launches": cold["k3_launches"], "hd256": times["k3_hd256"],
+         "whisper_medium": {**times["k3_whisper"], **k3_check["whisper_medium"]},
+         "cold_start_launches": cold["k3_launches"],
+         "mesh_prefill_launches": mesh["prefill"]["k3_launches"],
+         "granite_moe_1b": {**times["k3_granite"], **k3_check["granite_moe_1b"]},
+         "hd256": times["k3_hd256"],
          "f32": times["k3_f32"], "f32_hd256": times["k3_f32_hd256"], "instances": build["k3"]},
         {"name": "decode_attention_bhsd", "route": "cuda", "source": csrc + "decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:22",

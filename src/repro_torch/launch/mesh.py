@@ -9,6 +9,12 @@ take the cards in turn (position ``p`` on ``cuda:{p % device_count}``), and
 a copy between positions becomes a peer copy.  ``mesh.shape`` maps each
 axis name to its size, as ``jax.sharding.Mesh.shape`` does, so
 ``mesh.shape["data"]`` reads the same in both packages.
+
+:class:`PartitionSpec` and :class:`NamedSharding` are the port's
+counterparts of ``jax.sharding``'s: a spec names, for each dim of a tensor,
+the mesh axes it is split over, and a named sharding pairs a spec with a
+mesh.  ``distributed/sharding.py`` computes them and ``distributed/api.py``
+applies them.
 """
 from __future__ import annotations
 
@@ -26,6 +32,49 @@ class Mesh:
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+
+class PartitionSpec(tuple):
+    """One entry per dim of a tensor: ``None`` (not split), a mesh axis name,
+    or a tuple of names (split over their product, the first outermost).
+    Trailing dims left out are not split.  A tuple, so it compares, hashes
+    and unpacks by value, as ``jax.sharding.PartitionSpec`` does; unlike
+    jax 0.9's, it keeps a one-name tuple as given."""
+
+    def __new__(cls, *parts):
+        for part in parts:
+            ok = part is None or isinstance(part, str) or (
+                isinstance(part, tuple) and all(isinstance(a, str) for a in part))
+            if not ok:
+                raise TypeError(f"PartitionSpec entry {part!r}: None, an axis name "
+                                "or a tuple of names")
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+    def axis_names(self) -> list[str]:
+        """Every mesh axis the spec names, in order."""
+        return [a for part in self if part is not None
+                for a in ((part,) if isinstance(part, str) else part)]
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh.  Refused, as ``jax.sharding.NamedSharding`` refuses
+    it, when the spec names an axis the mesh lacks or names one axis twice."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+    def __post_init__(self):
+        names = self.spec.axis_names()
+        missing = [a for a in names if a not in self.mesh.axis_names]
+        if missing:
+            raise ValueError(f"{self.spec} names axes {missing} that the mesh "
+                             f"{self.mesh.axis_names} lacks")
+        if len(set(names)) != len(names):
+            raise ValueError(f"{self.spec} names a mesh axis twice")
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], device="cuda") -> Mesh:

@@ -12,9 +12,18 @@ one-hot einsum, whose (T, E, C) tensor is O(T²·k)):
   * the expert FFN is a batched einsum over (E, C, d);
   * combine gathers each choice's output row and weights it by the gate.
 
+Under a mesh (a ``sharding_context`` whose data axes hold dp > 1
+positions, and a token count dp divides), routing and scatter run PER DATA
+SHARD, as the reference's ``shard_map`` runs them: shard p owns the p-th
+run of n/dp consecutive tokens (pod-major over ("pod", "data")), routes
+them at its own capacity C, and fills capacity columns [p·C, (p+1)·C) of
+an (E, dp·C, d) buffer; its combine reads back from those columns, and the
+aux loss is the mean of the shards' own.  The shards are a leading dim of
+one batched computation, not a loop.  Outside a mesh, the one-device
+branch routes all tokens at one capacity.
+
 DeepSeek-MoE's *shared experts* (always-on) run densely alongside.  The
-router adds the Switch-style load-balancing auxiliary loss.  The port has
-no device mesh yet, so this is the JAX package's single-device branch.
+router adds the Switch-style load-balancing auxiliary loss.
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.api import active_mesh, constrain
 
 from .layers import _gelu, _normal, apply_mlp, init_mlp
 
@@ -45,42 +56,45 @@ def init_moe(gen: torch.Generator, cfg, lead: tuple = ()) -> PyTree:
 
 
 def route_topk(
-    logits: torch.Tensor,  # (T, E) f32
+    logits: torch.Tensor,  # (..., T, E) f32
     k: int,
     capacity: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (slot (T,k) int32 into E*C [E*C = dropped], gate (T,k) f32,
-    eids (T,k) int32, aux_loss scalar)."""
-    t, e = logits.shape
+    """Returns (slot (...,T,k) int32 into E*C [E*C = dropped], gate (...,T,k)
+    f32, eids (...,T,k) int32, aux_loss (...)).  Leading dims are independent
+    routings (one per data shard), each over its own T tokens."""
+    *lead, t, e = logits.shape
     probs = torch.softmax(logits.to(_F32), dim=-1)
     # sorted, as lax.top_k returns them: the choice order decides the drops
     gate_vals, eids = torch.topk(probs, k, dim=-1, largest=True, sorted=True)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
     # position of each (token, choice) within its expert, in token order
-    onehot = F.one_hot(eids, e)  # (T,k,E) int64
-    flat = onehot.reshape(t * k, e)
-    pos_in_expert = (torch.cumsum(flat, dim=0) - flat).reshape(t, k, e)
-    pos = (pos_in_expert * onehot).sum(-1)  # (T,k)
+    onehot = F.one_hot(eids, e)  # (...,T,k,E) int64
+    flat = onehot.reshape(*lead, t * k, e)
+    pos_in_expert = (torch.cumsum(flat, dim=-2) - flat).reshape(*lead, t, k, e)
+    pos = (pos_in_expert * onehot).sum(-1)  # (...,T,k)
     keep = pos < capacity
     slot = torch.where(keep, eids * capacity + pos, torch.full_like(pos, e * capacity))
 
     # Switch-style load-balance loss: E * sum_e f_e * p_e
-    me = probs.mean(dim=0)
-    ce = F.one_hot(eids[:, 0], e).to(_F32).mean(dim=0)
-    aux = e * torch.sum(me * ce)
+    me = probs.mean(dim=-2)
+    ce = F.one_hot(eids[..., 0], e).to(_F32).mean(dim=-2)
+    aux = e * torch.sum(me * ce, dim=-1)
     return slot.to(torch.int32), gate_vals, eids.to(torch.int32), aux
 
 
+def _capacity(n_tok: int, m, t: int) -> int:
+    if t == 1:  # decode: capacity covers every token — no drops at inference
+        return n_tok
+    return max(int(n_tok * m.top_k / m.n_experts * m.capacity_factor), m.top_k)
+
+
 def _dispatch_combine_plan(xf, router, m, t):
-    """Routing + scatter for the tokens in ``xf``."""
+    """Routing + scatter for the tokens in ``xf`` (the one-device branch)."""
     n_tok, d = xf.shape
     logits = xf.to(_F32) @ router.to(_F32)
-    if t == 1:  # decode: capacity covers every token — no drops at inference
-        capacity = n_tok
-    else:
-        capacity = int(n_tok * m.top_k / m.n_experts * m.capacity_factor)
-        capacity = max(capacity, m.top_k)
+    capacity = _capacity(n_tok, m, t)
     slot, gate, _, aux = route_topk(logits, m.top_k, capacity)
     e = m.n_experts
     upd = xf[:, None, :].expand(n_tok, m.top_k, d).reshape(-1, d)
@@ -91,6 +105,51 @@ def _dispatch_combine_plan(xf, router, m, t):
     return buf[:-1].reshape(e, capacity, d), slot, gate, aux, capacity
 
 
+def _shard_dispatch_plan(xf, router, m, t, dp: int):
+    """Routing + scatter with ``xf``'s tokens split into ``dp`` shards of
+    consecutive tokens, each routed at its own capacity C.
+
+    Returns the (E, dp·C, d) buffer, whose columns [p·C, (p+1)·C) are shard
+    p's capacity slice; each (token, choice)'s row in the buffer flattened
+    to (E·dp·C, d), where its combine reads (a dropped choice reads its
+    shard's last row of the last expert, as the reference's clamped gather
+    does, and is weighted 0); the keep mask; the gates; the shards' own
+    slots (dp, n/dp, k) into E·C; the mean aux loss; and C."""
+    n_tok, d = xf.shape
+    n, e, k = n_tok // dp, m.n_experts, m.top_k
+    logits = (xf.to(_F32) @ router.to(_F32)).reshape(dp, n, e)
+    capacity = _capacity(n, m, t)
+    slot, gate, _, aux = route_topk(logits, k, capacity)
+    keep = slot < e * capacity
+    # shard p's slot e·C + c is column p·C + c of expert e: row
+    # e·dp·C + p·C + c of the flattened buffer
+    shard = torch.arange(dp, device=xf.device).view(dp, 1, 1) * capacity
+    slot = slot.long()
+    eid, col = slot // capacity, shard + slot % capacity
+    row = torch.where(keep, eid * (dp * capacity) + col, e * dp * capacity)
+    upd = xf[:, None, :].expand(n_tok, k, d).reshape(-1, d)
+    buf = torch.zeros((e * dp * capacity + 1, d), dtype=xf.dtype, device=xf.device)
+    buf.index_add_(0, row.reshape(-1), upd)
+    read = torch.where(keep, row, (e - 1) * dp * capacity + shard + capacity - 1)
+    return (buf[:-1].reshape(e, dp * capacity, d), read.reshape(n_tok, k),
+            keep.reshape(n_tok, k), gate.reshape(n_tok, k), slot.to(torch.int32),
+            aux.mean(), capacity)
+
+
+def data_shards(n_tok: int) -> int:
+    """How many data shards route ``n_tok`` tokens apart: the product of the
+    active mesh's data axes, or 1 outside a mesh, when that product is 1, or
+    when it does not divide ``n_tok``."""
+    # imported here, as in the reference: sharding.py imports the models package
+    from repro_torch.distributed.sharding import axis_size, data_axes
+
+    mesh = active_mesh()
+    if mesh is None:
+        return 1
+    dp = axis_size(mesh, data_axes(mesh))
+    return dp if dp > 1 and n_tok % dp == 0 else 1
+
+
 def apply_moe(p: PyTree, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B,T,d) -> (y (B,T,d), aux_loss scalar)."""
     m = cfg.moe
@@ -98,18 +157,22 @@ def apply_moe(p: PyTree, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tens
     n_tok = b * t
     xf = x.reshape(n_tok, d)
     dt = x.dtype
-    xe, slot, gate, aux, _ = _dispatch_combine_plan(xf, p["router"], m, t)
+    dp = data_shards(n_tok)
+    if dp > 1:
+        buf, read, keep, gate, _, aux, _ = _shard_dispatch_plan(xf, p["router"], m, t, dp)
+    else:
+        buf, slot, gate, aux, cap = _dispatch_combine_plan(xf, p["router"], m, t)
+        n_rows = m.n_experts * cap
+        read, keep = torch.clamp(slot, max=n_rows - 1).long(), slot < n_rows
 
+    xe = constrain(buf, ("model", "data", None))  # EP: experts↔model
     g = torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(dt))
     u = torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(dt))
     h = (F.silu(g) if cfg.act == "swiglu" else _gelu(g)) * u
     ye = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))  # (E,C,d)
 
-    e_, cap, d_ = ye.shape
-    yef = ye.reshape(-1, d_)
-    got = yef[torch.clamp(slot, max=e_ * cap - 1).long()]  # (T,k,d)
-    keep = (slot < e_ * cap).to(_F32)
-    w = (gate * keep).to(got.dtype)
+    got = ye.reshape(-1, d)[read]  # (T,k,d)
+    w = (gate * keep.to(_F32)).to(got.dtype)
     y = torch.einsum("tkd,tk->td", got, w).to(dt)
 
     if "shared" in p:

@@ -67,6 +67,17 @@ def tree_unflatten(like: PyTree, leaves: list) -> PyTree:
     return build(like)
 
 
+class MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is ``meta``, so ``model.init(MetaGenerator())``
+    gives the params tree as ``device="meta"`` tensors: every shape and
+    dtype, no storage and no draws (the JAX package's
+    ``jax.eval_shape(model.init, key)``), at any width."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def tensor_from_numpy(arr, device) -> torch.Tensor:
     """One numpy array (bfloat16 as ``ml_dtypes`` gives it, too) as a tensor."""
     arr = np.array(arr, order="C")  # a copy; unlike ascontiguousarray it keeps 0-d leaves 0-d

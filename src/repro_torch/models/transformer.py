@@ -22,8 +22,9 @@ Three modes share one code path:
                   write, as there.
 
 MoE layers return the router's load-balancing loss, summed over layers as
-``aux``.  The port has no device mesh yet, so there are no sharding
-constraints.
+``aux``.  The residual stream and the logits are constrained at the
+reference's sites (``distributed/api.py::constrain``): a no-op outside a
+``sharding_context``, the tensor itself inside one.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ from typing import Any, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.api import bind_context, constrain
 
 from . import attention as attn
 from .layers import (
@@ -274,6 +277,7 @@ def _apply_layer(cfg, spec, p, x, *, positions, inv_freq, cache, pos, mode,
                 cache[key].copy_(val)
             new_cache = cache
     x = x + h
+    x = constrain(x, ("data", None, None))
     if spec.ffn != "none":
         h2 = apply_norm(cfg.norm, p["norm2"], x)
         if spec.ffn == "moe":
@@ -282,6 +286,7 @@ def _apply_layer(cfg, spec, p, x, *, positions, inv_freq, cache, pos, mode,
         else:
             h2 = apply_mlp(p["mlp"], h2, cfg.act)
         x = x + h2
+        x = constrain(x, ("data", None, None))
     return x, new_cache, aux
 
 
@@ -339,8 +344,9 @@ def _run_stage(cfg, stage: Stage, stage_params, x, *, positions, inv_freq,
     fn = run_pattern
     if cfg.remat == "block" and mode == "train":
         # keep only each block's input; its activations are recomputed in
-        # the backward pass (the reference's jax.checkpoint)
-        fn = functools.partial(checkpoint, run_pattern, use_reentrant=False)
+        # the backward pass (the reference's jax.checkpoint), under the
+        # sharding context of the forward
+        fn = functools.partial(checkpoint, bind_context(run_pattern), use_reentrant=False)
 
     if stage.repeat == 1:
         return fn(x, stage_params, stage_cache)
@@ -387,6 +393,7 @@ def forward(
 ) -> tuple[torch.Tensor, Optional[list], torch.Tensor]:
     """Returns (logits, new_cache, aux_loss). Logits (B,T,V)."""
     x = embed_inputs(params, cfg, batch, mode)
+    x = constrain(x, ("data", None, None))
     b, t = x.shape[0], x.shape[1]
     dev = x.device
     if mode == "decode":
@@ -416,4 +423,5 @@ def forward(
         logits = unembed(params["embed"], x)
     else:
         logits = apply_linear(params["lm_head"], x)
+    logits = constrain(logits, ("data", None, "model"))
     return logits, (new_caches if mode in ("prefill", "decode") else None), aux

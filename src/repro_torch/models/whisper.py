@@ -9,8 +9,10 @@ encodings are sinusoidal for both stacks.
 The stacked layers keep the reference's layout (a leading layer axis on
 every leaf of ``enc_layers`` and ``dec_layers``), so params, caches and
 checkpoints match it leaf for leaf.  The JAX package scans over that axis;
-the port loops over it.  The port has no device mesh yet, so there are no
-sharding constraints.
+the port loops over it.  The encoder's and the decoder's residual streams
+and the logits are constrained at the reference's sites
+(``distributed/api.py::constrain``): a no-op outside a
+``sharding_context``, the tensor itself inside one.
 
 Three modes, as there:
   * ``train``   — full-sequence forward, no cache; with ``cfg.remat ==
@@ -32,6 +34,8 @@ from typing import Any, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.api import bind_context, constrain
 
 from . import attention as attn
 from .layers import (
@@ -116,6 +120,7 @@ def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
     x = apply_linear(params["frontend_proj"], frames.to(dtype))
     ctx_pos = torch.arange(x.shape[1], device=x.device)
     x = x + sinusoid(ctx_pos, cfg.d_model, dtype)[None]
+    x = constrain(x, ("data", None, None))
     scale = cfg.hd**-0.5
     rep = cfg.n_heads // cfg.n_kv_heads
     for i in range(cfg.encdec.encoder_layers):
@@ -126,6 +131,7 @@ def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
         x = x + attn.out_proj(p["attn"], o)
         h = apply_norm(cfg.norm, p["norm2"], x)
         x = x + apply_mlp(p["mlp"], h, cfg.act)
+        x = constrain(x, ("data", None, None))
     return apply_norm(cfg.norm, params["enc_norm"], x)
 
 
@@ -165,7 +171,7 @@ def _dec_layer(cfg, p, x, enc_kv, *, positions, self_cache, pos, mode):
     x = x + attn.out_proj(p["cross_attn"], ox)
     h = apply_norm(cfg.norm, p["norm2"], x)
     x = x + apply_mlp(p["mlp"], h, cfg.act)
-    return x, new_cache
+    return constrain(x, ("data", None, None)), new_cache
 
 
 def cross_kv(params, cfg, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -205,6 +211,7 @@ def forward(
 
     x = embed(params["embed"], tokens.long(), dtype)
     x = x + sinusoid(positions, cfg.d_model, dtype)
+    x = constrain(x, ("data", None, None))
 
     layer_fn = functools.partial(_dec_layer, cfg, positions=positions, pos=pos, mode=mode)
     dec = params["dec_layers"]
@@ -220,8 +227,9 @@ def forward(
 
         if cfg.remat == "block" and mode == "train":
             # keep only each decoder layer's input; its activations are
-            # recomputed in the backward pass (the reference's jax.checkpoint)
-            run = functools.partial(checkpoint, run, use_reentrant=False)
+            # recomputed in the backward pass (the reference's jax.checkpoint),
+            # under the sharding context of the forward
+            run = functools.partial(checkpoint, bind_context(run), use_reentrant=False)
         per_layer = []
         for i in range(cfg.n_layers):
             x, nc = run(x, _layer(dec, i), (kx[i], vx[i]))
@@ -230,6 +238,7 @@ def forward(
                     if mode == "prefill" else None)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = unembed(params["embed"], x)  # whisper ties embeddings
+    logits = constrain(logits, ("data", None, "model"))
     aux = torch.zeros((), dtype=_F32, device=dev)
     if mode == "train":
         return logits, None, aux

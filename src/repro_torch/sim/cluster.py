@@ -62,9 +62,9 @@ class WaveConfig:
     dadi_coord_s: float = 0.160  # DADI root CPU per joining node
     seed: int = 0
     # Engine backend for the wave's FlowSim ("vector_torch" | "vector" |
-    # "incremental"), whether it keeps the per-event text log, and the torch
-    # device of "vector_torch"; threaded into SimConfig by every wave entry
-    # point.
+    # "incremental" | "reference"), whether it keeps the per-event text log,
+    # and the torch device of "vector_torch"; threaded into SimConfig by
+    # every wave entry point.
     engine: str = "vector_torch"
     record_trace: bool = True
     device: str = "cuda"

@@ -1,19 +1,26 @@
 """Train-step factory: microbatched gradient accumulation and AdamW.
 
-``make_train_step(cfg, ...)`` builds
+``make_train_step(cfg, mesh, ...)`` builds
 ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``,
-the JAX package's single-device step:
+the JAX package's step:
 
   * gradient accumulation over ``n_micro`` microbatches, each through
     ``model.loss`` and ``torch.autograd`` (activation memory bounded by the
     microbatch, not the global batch), summed in float32 and divided by
     ``n_micro``;
   * AdamW on the float32 master weights (``optim.adamw``, in place), and the
-    new params as the master weights cast to the params' dtype.
+    new params as the master weights cast to the params' dtype;
+  * with a ``mesh``, the reference's ZeRO-1 layout: each microbatch's
+    float32 gradients and the accumulator constrained to
+    ``ShardingRules.opt_shardings``, the new params to
+    ``params_shardings`` (``distributed/api.py::with_sharding_constraint``,
+    which on one card leaves every tensor whole: outside a sharding
+    context the values are the ``mesh=None`` step's bit for bit).
 
-``opt_state`` is updated in place and returned, where the JAX package
-donates it.  The ZeRO-1 sharding of the reference's mesh branch is not
-ported: ``mesh`` must be ``None``.
+As in the reference, the step does not enter a ``sharding_context``; the
+caller does, and inside one the MoE layers route each data shard's tokens
+on their own (``models/moe.py``).  ``opt_state`` is updated in place and
+returned, where the JAX package donates it.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed.api import with_sharding_constraint
+from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.models import model_for
 from repro_torch.models.params import tree_leaves_with_path, tree_map, tree_unflatten
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
@@ -42,18 +51,33 @@ def _split_microbatches(batch: dict, n_micro: int) -> list[dict]:
 
 def make_train_step(cfg, mesh=None, *, opt: AdamWConfig | None = None,
                     n_micro: int = 1):
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step: the mesh (ZeRO-1 sharding) branch is not ported; "
-            "ROADMAP.md Queue 1 item 7 (distributed/sharding.py) comes first"
-        )
     opt = opt or AdamWConfig()
     model = model_for(cfg)
+    rules = ShardingRules(cfg, mesh) if mesh is not None else None
+    layouts: dict = {}  # (path, shape) of every leaf -> (opt specs, params specs)
+
+    def leaf_layouts(params, pairs):
+        """The ZeRO-1 layout of the gradients and their float32 accumulator,
+        and the params' layout, leaf by leaf; they depend on the leaves'
+        paths and shapes alone, so each tree is walked once."""
+        key = tuple((path, tuple(p.shape)) for path, p in pairs)
+        if key not in layouts:
+            layouts[key] = tuple([s for _, s in tree_leaves_with_path(walk(params))]
+                                 for walk in (rules.opt_shardings, rules.params_shardings))
+        return layouts[key]
 
     def train_step(params, opt_state, batch):
-        leaves = [p for _, p in tree_leaves_with_path(params)]
+        pairs = tree_leaves_with_path(params)
+        leaves = [p for _, p in pairs]
         device = leaves[0].device
-        g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=device) for p in leaves]
+        opt_spec, params_spec = (leaf_layouts(params, pairs) if rules is not None
+                                 else ([None] * len(leaves), None))
+
+        def shard_like_opt(g, spec):
+            return g if spec is None or g is None else with_sharding_constraint(g, spec)
+
+        g_acc = [shard_like_opt(torch.zeros(p.shape, dtype=torch.float32, device=device), s)
+                 for p, s in zip(leaves, opt_spec)]
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         for mb in _split_microbatches(batch, n_micro):
             with torch.enable_grad():
@@ -61,9 +85,9 @@ def make_train_step(cfg, mesh=None, *, opt: AdamWConfig | None = None,
                 loss, metrics = model.loss(tree_unflatten(params, live), mb)
                 grads = torch.autograd.grad(loss, live, allow_unused=True)
             with torch.no_grad():
-                for acc, g in zip(g_acc, grads):
+                for acc, g, spec in zip(g_acc, grads, opt_spec):
                     if g is not None:  # a leaf the loss does not use: a zero gradient
-                        acc.add_(g)
+                        acc.add_(shard_like_opt(g, spec))  # added in float32
                 loss_sum = loss_sum + loss.detach()
             ce_last = metrics["ce"].detach()
         with torch.no_grad():
@@ -72,6 +96,10 @@ def make_train_step(cfg, mesh=None, *, opt: AdamWConfig | None = None,
             new_master, new_opt, om = adamw_update(opt, grads, opt_state)
             del grads  # the f32 accumulator, freed before the new params are cast
             new_params = tree_map(lambda m, p: m.to(p.dtype, copy=True), new_master, params)
+            if rules is not None:
+                new_params = tree_unflatten(new_params, [
+                    with_sharding_constraint(x, spec)
+                    for (_, x), spec in zip(tree_leaves_with_path(new_params), params_spec)])
         metrics = {"loss": loss_sum / n_micro, "ce_last": ce_last, **om}
         return new_params, new_opt, metrics
 

@@ -183,8 +183,31 @@ def test_microbatch_equivalence():
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        make_train_step(TTINY, mesh=object())
+    """The mesh branch is ported now; the test keeps its name.  On a dense
+    config the mesh step's values are the ``mesh=None`` step's bit for bit,
+    outside and inside the sharding context (``tests/test_torch_moe_mesh.py``
+    holds the MoE case against the JAX package)."""
+    from repro_torch.distributed.api import sharding_context
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    batch = make_batch(TTINY, 16, 4, kind="train", seed=3, device="cpu")
+    runs = []
+    for m, ctx in ((None, False), (mesh, False), (mesh, True)):
+        params, opt_state = init_train_state(TTINY, torch.Generator().manual_seed(0))
+        _, step = make_train_step(TTINY, m, opt=AdamWConfig(**OPT), n_micro=2)
+        if ctx:
+            with sharding_context(mesh, ShardingRules(TTINY, mesh).logical_mapping()):
+                runs.append(step(params, opt_state, batch))
+        else:
+            runs.append(step(params, opt_state, batch))
+    (p0, o0, m0) = runs[0]
+    for p1, o1, m1 in runs[1:]:
+        assert torch.equal(m0["loss"], m1["loss"])
+        for tree0, tree1 in ((p0, p1), (o0, o1)):
+            for (_, a), (_, b) in zip(tree_leaves_with_path(tree0), tree_leaves_with_path(tree1)):
+                assert torch.equal(a, b)
 
 
 def test_loss_decreases():
