@@ -81,6 +81,17 @@ drives the port's two paths:
     events beside its HBM bound and the link model at an H100's NVLink;
   - the smoke config on a (4, 2) mesh, card against CPU, bit for bit;
   - ``examples/torch_elastic_train.py`` on the card.
+* the dry runs (phase ``dryrun``; no kernel, they trace ``chunked``):
+  three production cells traced on ``meta`` through
+  ``launch/dryrun.py::run_cell``, each roofline finite; then granite_moe_1b's
+  train step (phase train's recipe), deepseek_7b's 4 x 512 prefill and its
+  4 x 1 decode against a 1,024-slot int8 cache, each predicted on a meta
+  (1, 1) mesh and run on the card: ``FlopCounterMode`` over the card's run
+  equal to the meta trace's FLOPs, the arguments' bytes equal to the dry
+  run's ``argument_size_in_bytes``, device ms, host wall, peak memory and
+  the measured share of the roofline printed beside the prediction; and the
+  broadcast dry run of granite_moe_1b on both production meshes, its rounds
+  the port's round lists'.
 * the mesh layer (phase ``mesh``): ``granite_moe_1b`` at full width under
   the production (16, 16) mesh, whose 256 positions are the one card (dp
   16, so each MoE layer routes 16 shards of tokens apart):
@@ -277,6 +288,26 @@ BCAST_SMOKE = dict(mesh=(4, 2), n_blocks=4)
 # one direction of an H100 SXM's NVLink 4 (900 GB/s bidirectional, data
 # sheet): the link of the reference's serialized-bytes time model
 H100_NVLINK_ONE_WAY = 450e9
+
+# The dry runs (phase dryrun; no kernel: they trace `chunked`, as the
+# reference lowers it).  (a) Three production cells traced on meta through
+# launch/dryrun.py::run_cell on the (16, 16) mesh.  (b) Three cells at the
+# shapes the script already runs, on a (1, 1) mesh, bf16 params, `chunked`:
+# the dry run's prediction beside a measured run on the card, whose
+# FlopCounterMode FLOPs must equal the meta trace's and whose arguments'
+# bytes must equal argument_size_in_bytes.  (c) The broadcast dry run of
+# granite_moe_1b on both production meshes, every schedule.
+DRYRUN_CELLS = (("granite_moe_1b", "train_4k"), ("deepseek_7b", "decode_32k"),
+                ("mamba2_130m", "long_500k"))
+DRYRUN_MEASURED = (  # arch, (shape name, seq_len, batch, kind), n_micro
+    ("granite_moe_1b", ("train_8x512", TRAIN_FULL["seq_len"], TRAIN_FULL["batch"], "train"),
+     TRAIN_FULL["n_micro"]),
+    ("deepseek_7b", ("prefill_4x512", 512, 4, "prefill"), None),
+    ("deepseek_7b", ("decode_4x1_cache1024", 1024, 4, "decode"), None),
+)
+DRYRUN_REPS = 3
+BCAST_DRYRUN = (("naive", False), ("allgather", False), ("binomial", False),
+                ("pipelined", False), ("pipelined", True))
 
 # K2 and K4 are timed with a cold L2: each call rotates through operand sets
 # that together exceed this, so no launch finds its operands in the 50 MB L2
@@ -2628,6 +2659,168 @@ def phase_broadcast() -> dict:
     return out
 
 
+def dryrun_production_cells(outdir: Path) -> list:
+    """(a) Three production cells traced on meta, each roofline printed."""
+    from repro_torch.launch import dryrun
+
+    out = []
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(arch, shape, "single", str(outdir))
+        host_s = time.perf_counter() - t0
+        roof = r["roofline"]
+        terms = [roof[k] for k in ("compute_s", "memory_s", "collective_s", "bound_s",
+                                   "roofline_fraction")]
+        check(all(np.isfinite(terms)) and r["memory"]["argument_size_in_bytes"] > 0,
+              f"dry run {arch} {shape}: roofline {roof}, memory {r['memory']}")
+        out.append({"arch": arch, "shape": shape, "host_s": host_s, "traces": r["traces"],
+                    "program": r["program"], "memory": r["memory"], "roofline": roof,
+                    "collectives": r["collectives"]["bytes_by_kind"]})
+    return out
+
+
+def measured_cell(arch: str, shape_args, n_micro, params_cache: dict) -> dict:
+    """(b) One cell's dry-run prediction on a meta (1, 1) mesh beside the
+    same step run on the card: FLOPs by FlopCounterMode equal to the meta
+    trace's, the arguments' bytes equal to argument_size_in_bytes; device ms
+    by CUDA events (median of DRYRUN_REPS after a warm-up), host wall, peak
+    memory, and the measured share of the roofline."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distributed.api import sharding_context
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import PEAK_FLOPS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_for
+    from repro_torch.models.params import tree_leaves_with_path
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.step import make_train_step
+
+    shape = ShapeConfig(*shape_args)
+    axes = ("data", "model")
+    meta_mesh = make_mesh((1, 1), axes, device="meta")
+    lowered, meta, cfg = dryrun.lower_cell(arch, shape, meta_mesh, n_micro=n_micro)
+    t0 = time.perf_counter()
+    pred = dryrun.analyze(lowered, meta, cfg, meta_mesh)
+    predict_s = time.perf_counter() - t0
+
+    mesh = make_mesh((1, 1), axes)
+    model = model_for(cfg)
+    if arch not in params_cache:  # bf16 params drawn on the card from seed 0
+        params_cache.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        params_cache[arch] = dryrun.bf16_struct(
+            model.init(torch.Generator(device="cuda").manual_seed(0)))
+    params = params_cache[arch]
+    batch = make_batch(cfg, shape.seq_len, shape.global_batch, kind=shape.kind, device="cuda")
+    if shape.kind == "train":
+        _, step = make_train_step(cfg, mesh, n_micro=n_micro)
+        args = (params, init_opt_state(params), batch)
+    elif shape.kind == "prefill":
+        step, args = model.prefill, (params, batch)
+    else:
+        step = model.decode_step
+        args = (params, batch, model.init_cache(shape.global_batch, shape.seq_len,
+                                                device="cuda"))
+    arg_bytes = sum(x.numel() * x.element_size() for a in args
+                    for _, x in tree_leaves_with_path(a))
+
+    def run():
+        with sharding_context(mesh, lowered.rules.logical_mapping()):
+            return step(*args)
+
+    kernels.reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        run()
+        torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    device_ms, host_s = [], []
+    for _ in range(DRYRUN_REPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        host_s.append(time.perf_counter() - t0)
+        device_ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts()
+    del args, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    check(card_flops == pred["program"]["flops"],
+          f"{arch} {shape.name}: FlopCounterMode on the card {card_flops}, "
+          f"the meta trace {pred['program']['flops']}")
+    check(arg_bytes == pred["memory"]["argument_size_in_bytes"],
+          f"{arch} {shape.name}: arguments {arg_bytes} bytes, the dry run "
+          f"{pred['memory']['argument_size_in_bytes']}")
+    check(not any(launches.values()), f"a kernel launched on the dry-run cells: {launches}")
+    roof = pred["roofline"]
+    measured_s = float(np.median(device_ms)) / 1e3
+    basis = pred["model_flops_basis"]
+    model_flops = basis["multiplier"] * basis["active_params"] * basis["tokens"]
+    return {"arch": arch, "shape": shape.name, "kind": shape.kind, "seq_len": shape.seq_len,
+            "batch": shape.global_batch, "n_micro": n_micro, "attn_impl": cfg.attn_impl,
+            "kv_cache_dtype": cfg.kv_cache_dtype, "predict_s": predict_s,
+            "traces": pred["traces"], "flops": card_flops, "flops_equal": True,
+            "argument_bytes": arg_bytes, "argument_bytes_equal": True,
+            "program_bytes": pred["program"]["bytes_accessed"],
+            "prediction": {k: roof[k] for k in roof if k != "hlo_flops_per_device"},
+            "device_ms": device_ms, "device_ms_median": measured_s * 1e3, "host_s": host_s,
+            "peak_memory_bytes": peak, "model_flops": model_flops,
+            "measured_share": model_flops / (measured_s * PEAK_FLOPS),
+            "roofline_fraction": roof["roofline_fraction"],
+            "measured_over_bound": measured_s / roof["bound_s"]}
+
+
+def broadcast_dryrun_cells(outdir: Path) -> list:
+    """(c) The broadcast dry run of granite_moe_1b, both meshes, every
+    schedule, its rounds equal to the port's round lists."""
+    from repro_torch.distributed.broadcast import binomial_rounds, faasnet_rounds
+    from repro_torch.launch import broadcast_dryrun
+
+    out = []
+    for mesh_kind, dp in (("single", 16), ("multi", 32)):
+        want = {"naive": dp - 1, "allgather": 1, "binomial": len(binomial_rounds(dp)),
+                "pipelined": len(faasnet_rounds(dp, BCAST_BLOCKS))}
+        for schedule, compress in BCAST_DRYRUN:
+            r = broadcast_dryrun.run_one("granite_moe_1b", mesh_kind, schedule, BCAST_BLOCKS,
+                                         str(outdir), compress=compress)
+            check(r["dp"] == dp and r["rounds"] == want[schedule],
+                  f"broadcast dry run {mesh_kind} {r['schedule']}: dp {r['dp']}, "
+                  f"rounds {r['rounds']}, want {want[schedule]}")
+            out.append({k: r[k] for k in ("mesh", "schedule", "dp", "rounds", "collective_bytes",
+                                          "collective_ops", "serialized_bytes_per_link")}
+                       | {"modeled_ms": r["modeled_time_s"] * 1e3})
+    return out
+
+
+def phase_dryrun() -> dict:
+    """The dry runs: (a) production cells on meta, (b) predictions against
+    measured runs on the card, (c) the broadcast dry run."""
+    outdir = ROOT / "results"
+    t0 = time.perf_counter()
+    out = {"production": dryrun_production_cells(outdir / "dryrun_torch")}
+    out["production_s"] = time.perf_counter() - t0
+    params_cache: dict = {}
+    out["measured"] = [measured_cell(arch, shape, n_micro, params_cache)
+                       for arch, shape, n_micro in DRYRUN_MEASURED]
+    params_cache.clear()
+    out["broadcast"] = broadcast_dryrun_cells(outdir / "broadcast_torch")
+    emit("dryrun", **out)
+    return out
+
+
 def time_k3(bh: int, t: int, hd: int, dtype: str = "bfloat16") -> dict:
     """K3 at one shape: the bf16 tensor-core instance or the float32 SIMT one,
     beside causal SDPA on the same inputs."""
@@ -2873,6 +3066,7 @@ def main() -> int:
     train = timed(phase_train)
     mesh = timed(phase_mesh, train)
     timed(phase_broadcast)
+    timed(phase_dryrun)
     times = timed(phase_timings, giga)
 
     src = "src/repro_torch/kernels/csrc/cap_chain.cu"

@@ -14,12 +14,18 @@ it is: a constraint checks its spec against the mesh (an axis the mesh
 lacks, or one named twice, raises; so does a spec longer than the tensor's
 rank) and returns the tensor itself.  Values never change, as under the
 reference's ``with_sharding_constraint``.
+
+While a :func:`record_constraints` block is active, every constraint is
+also written down (:class:`Constraint`: shape, dtype, spec, mesh and the
+call site's kind), so ``launch/dryrun.py`` can derive the collectives a
+mesh of cards would run.  Outside one nothing is recorded.
 """
 from __future__ import annotations
 
 import functools
 import threading
 from contextlib import contextmanager
+from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -28,6 +34,33 @@ from repro_torch.launch.mesh import NamedSharding
 from repro_torch.launch.mesh import PartitionSpec as P
 
 _state = threading.local()
+
+
+@dataclass(frozen=True)
+class Constraint:
+    """One ``with_sharding_constraint`` call, as :func:`record_constraints`
+    keeps it.  ``site`` says what the tensor is: ``"activation"`` (from
+    :func:`constrain`), or the train step's ``"grad_accumulator"``,
+    ``"grad"`` (one microbatch's gradient) and ``"params"`` (the new
+    params)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    spec: P
+    mesh: object
+    site: str
+
+
+@contextmanager
+def record_constraints():
+    """Yields a list that every constraint made inside the block appends to,
+    on this thread and in blocks :func:`bind_context` bound inside it."""
+    prev = getattr(_state, "records", None)
+    _state.records = records = []
+    try:
+        yield records
+    finally:
+        _state.records = prev
 
 
 def _translate(axis, mapping) -> object:
@@ -61,28 +94,35 @@ def bind_context(fn: Callable) -> Callable:
     recompute of a ``torch.utils.checkpoint`` block, on a device thread of
     its own, where the caller's thread-local context is not set; a block
     bound here recomputes as its forward ran (the reference's
-    ``jax.checkpoint`` recomputes inside the same trace)."""
+    ``jax.checkpoint`` recomputes inside the same trace).  An active
+    :func:`record_constraints` list is bound with it."""
     ctx = getattr(_state, "ctx", None)
+    records = getattr(_state, "records", None)
 
     @functools.wraps(fn)
     def run(*args, **kwargs):
-        prev = getattr(_state, "ctx", None)
-        _state.ctx = ctx
+        prev = getattr(_state, "ctx", None), getattr(_state, "records", None)
+        _state.ctx, _state.records = ctx, records
         try:
             return fn(*args, **kwargs)
         finally:
-            _state.ctx = prev
+            _state.ctx, _state.records = prev
 
     return run
 
 
-def with_sharding_constraint(x: torch.Tensor, named: NamedSharding) -> torch.Tensor:
+def with_sharding_constraint(x: torch.Tensor, named: NamedSharding, *,
+                             site: str = "activation") -> torch.Tensor:
     """``x`` itself, laid out as ``named`` says: on one card that layout is
     the whole tensor.  Raises where the reference's would, for a spec with
-    more entries than ``x`` has dims."""
+    more entries than ``x`` has dims.  ``site`` is what a
+    :func:`record_constraints` block records the call as."""
     if len(named.spec) > x.dim():
         raise ValueError(f"{named.spec} has {len(named.spec)} entries for a tensor "
                          f"of rank {x.dim()}")
+    records = getattr(_state, "records", None)
+    if records is not None:
+        records.append(Constraint(tuple(x.shape), x.dtype, named.spec, named.mesh, site))
     return x
 
 

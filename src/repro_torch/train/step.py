@@ -15,7 +15,9 @@ the JAX package's step:
     ``ShardingRules.opt_shardings``, the new params to
     ``params_shardings`` (``distributed/api.py::with_sharding_constraint``,
     which on one card leaves every tensor whole: outside a sharding
-    context the values are the ``mesh=None`` step's bit for bit).
+    context the values are the ``mesh=None`` step's bit for bit; each
+    call names its site, ``"grad_accumulator"``, ``"grad"`` or
+    ``"params"``, for ``launch/dryrun.py``'s collective model).
 
 As in the reference, the step does not enter a ``sharding_context``; the
 caller does, and inside one the MoE layers route each data shard's tokens
@@ -73,10 +75,13 @@ def make_train_step(cfg, mesh=None, *, opt: AdamWConfig | None = None,
         opt_spec, params_spec = (leaf_layouts(params, pairs) if rules is not None
                                  else ([None] * len(leaves), None))
 
-        def shard_like_opt(g, spec):
-            return g if spec is None or g is None else with_sharding_constraint(g, spec)
+        def shard_like_opt(g, spec, site):
+            # as the reference, in float32: its ZeRO-1 reduce-scatter moves f32
+            return (g if spec is None or g is None
+                    else with_sharding_constraint(g.to(torch.float32), spec, site=site))
 
-        g_acc = [shard_like_opt(torch.zeros(p.shape, dtype=torch.float32, device=device), s)
+        g_acc = [shard_like_opt(torch.zeros(p.shape, dtype=torch.float32, device=device), s,
+                                "grad_accumulator")
                  for p, s in zip(leaves, opt_spec)]
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         for mb in _split_microbatches(batch, n_micro):
@@ -87,7 +92,7 @@ def make_train_step(cfg, mesh=None, *, opt: AdamWConfig | None = None,
             with torch.no_grad():
                 for acc, g, spec in zip(g_acc, grads, opt_spec):
                     if g is not None:  # a leaf the loss does not use: a zero gradient
-                        acc.add_(shard_like_opt(g, spec))  # added in float32
+                        acc.add_(shard_like_opt(g, spec, "grad"))  # added in float32
                 loss_sum = loss_sum + loss.detach()
             ce_last = metrics["ce"].detach()
         with torch.no_grad():
@@ -98,7 +103,7 @@ def make_train_step(cfg, mesh=None, *, opt: AdamWConfig | None = None,
             new_params = tree_map(lambda m, p: m.to(p.dtype, copy=True), new_master, params)
             if rules is not None:
                 new_params = tree_unflatten(new_params, [
-                    with_sharding_constraint(x, spec)
+                    with_sharding_constraint(x, spec, site="params")
                     for (_, x), spec in zip(tree_leaves_with_path(new_params), params_spec)])
         metrics = {"loss": loss_sum / n_micro, "ce_last": ce_last, **om}
         return new_params, new_opt, metrics

@@ -1,0 +1,263 @@
+"""The port's dry run held against the JAX package's.
+
+* For every cell of ``configs.cells()`` on both production meshes, ``meta``
+  and ``model_flops_basis`` equal what the reference's dry run writes,
+  with nothing compiled: the reference's values come from its configs and
+  its ``N_MICRO``, read from the source, since importing
+  ``repro.launch.dryrun`` forces 512 host devices through ``XLA_FLAGS``.
+* The reference runs once, in a subprocess that imports its dry run and
+  swaps each config for its smoke config and each shape for a small one
+  (4 sequences of 256 tokens, two microbatches for train):
+  - on one device, its ``analyze_hlo`` FLOPs against the port's traced
+    FLOPs, within 0.1 %, for deepseek_7b, granite_moe_1b and mamba2_130m,
+    prefill and train, and deepseek_7b's decode; except mamba2_130m's
+    prefill, whose measured ratio is pinned (see ``PINNED``);
+  - on (4, 2) and (2, 2, 2) meshes, its ``memory_analysis()`` against the
+    port's byte counts from the sharding rules, train, prefill and decode
+    of deepseek_7b and granite_moe_1b: argument bytes equal byte for byte,
+    donated (alias) bytes too, and the prefill's outputs up to XLA's tuple
+    index table.
+* The ZeRO-1 collectives derived from recorded constraints on a hand-built
+  two-leaf tree, byte for byte.  (``test_torch_dryrun_scaling.py`` holds
+  the extrapolated counts equal to unscaled traces.)
+* The train step records each constraint's site.
+* ``run_cell`` on one full-width cell (deepseek_7b, ``decode_32k``) on meta.
+"""
+import ast
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch.configs
+from repro.configs import SHAPES as JSHAPES
+from repro.configs import cells
+from repro.configs import get_config as jget_config
+from repro_torch.configs import ShapeConfig, get_smoke
+from repro_torch.distributed.api import record_constraints, with_sharding_constraint
+from repro_torch.distributed.sharding import ShardingRules
+from repro_torch.launch import dryrun
+from repro_torch.launch.hlo_analysis import HloStats
+from repro_torch.launch.mesh import PartitionSpec as P
+from repro_torch.launch.mesh import make_mesh, make_production_mesh
+
+ROOT = Path(__file__).resolve().parent.parent
+AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+SMALL = {kind: ShapeConfig(kind, 256, 4, kind) for kind in ("train", "prefill", "decode")}
+N_MICRO_SMALL = 2
+FLOP_CASES = [("deepseek_7b", "prefill"), ("deepseek_7b", "train"), ("deepseek_7b", "decode"),
+              ("granite_moe_1b", "prefill"), ("granite_moe_1b", "train"),
+              ("mamba2_130m", "prefill"), ("mamba2_130m", "train")]
+MEMORY_CASES = [(arch, kind, mesh) for arch in ("deepseek_7b", "granite_moe_1b")
+                for kind in ("train", "prefill", "decode") for mesh in ((4, 2), (2, 2, 2))]
+# The port's mamba2_130m prefill does 1.734x the reference's compiled FLOPs
+# at this shape (778,567,680 against 449,052,672).  The extra is real work
+# of the port's eager program: with the prefill cache, each Mamba layer runs
+# ``ssd_chunked`` a second time (``models/transformer.py::_mamba_prefill_cache``)
+# for the final state the first call already computed and dropped
+# (``models/mamba2.py``); the reference's program runs it twice as well,
+# but XLA removes the first call's unused half as dead code.
+PINNED = {("mamba2_130m", "prefill"): 1.734}
+
+SCRIPT = r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro.launch import dryrun  # forces 512 host devices first
+import jax
+import numpy as np
+import repro.configs as rc
+from repro.launch.hlo_analysis import analyze_hlo
+
+spec = json.loads(sys.argv[2])
+rc.get_config = rc.get_smoke
+rc.SHAPES = {k: rc.ShapeConfig(k, *v, k) for k, v in spec["shapes"].items()}
+axes = {2: ("data", "model"), 3: ("pod", "data", "model")}
+out = []
+for arch, kind, shape in spec["cases"]:
+    devices = np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape)
+    mesh = jax.sharding.Mesh(devices, axes[len(shape)])
+    lowered, _, _ = dryrun.lower_cell(arch, kind, mesh, n_micro=spec["n_micro"])
+    compiled = lowered.compile()
+    ma = compiled.memory_analysis()
+    out.append({"flops": analyze_hlo(compiled.as_text()).flops,
+                "argument": ma.argument_size_in_bytes, "output": ma.output_size_in_bytes,
+                "alias": ma.alias_size_in_bytes})
+print(json.dumps(out))
+'''
+
+
+@pytest.fixture
+def smoke(monkeypatch):
+    """The dry run's configs are the smoke configs, as in the reference's
+    subprocess."""
+    monkeypatch.setattr(repro_torch.configs, "get_config", get_smoke)
+
+
+def _mesh(shape):
+    return make_mesh(shape, AXES[len(shape)], device="meta")
+
+
+def _lower(arch, kind, mesh_shape):
+    return dryrun.lower_cell(arch, SMALL[kind], _mesh(mesh_shape), n_micro=N_MICRO_SMALL)
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    cases = [(a, k, (1, 1)) for a, k in FLOP_CASES] + MEMORY_CASES
+    spec = {"cases": cases, "n_micro": N_MICRO_SMALL,
+            "shapes": {k: [s.seq_len, s.global_batch] for k, s in SMALL.items()}}
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(ROOT / "src"), json.dumps(spec)],
+                          capture_output=True, text=True, env=env, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    results = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {(a, k, tuple(m)): r for (a, k, m), r in zip(cases, results)}
+
+
+# ----------------------------------------------------------------------
+# meta and model_flops_basis, every cell, no compile
+# ----------------------------------------------------------------------
+def _reference_n_micro() -> dict:
+    """``N_MICRO`` of the reference's dry run, read from its source."""
+    tree = ast.parse((ROOT / "src/repro/launch/dryrun.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "N_MICRO" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError("no N_MICRO in the reference's dry run")
+
+
+def test_n_micro_is_the_references():
+    assert dryrun.N_MICRO == _reference_n_micro()
+
+
+@pytest.mark.parametrize("mesh_kind", ["single", "multi"])
+def test_meta_and_model_flops_basis_match_reference(mesh_kind):
+    n_micro = _reference_n_micro()
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi", device="meta")
+    for arch, shape_name, _ in cells():
+        shape = JSHAPES[shape_name]
+        want = {"arch": arch, "shape": shape_name, "kind": shape.kind, "seq_len": shape.seq_len,
+                "global_batch": shape.global_batch}
+        if shape.kind == "train":
+            want["n_micro"] = n_micro.get(arch, 8)
+        jcfg = dataclasses.replace(jget_config(arch), attn_impl="chunked", gqa_decode="grouped",
+                                   kv_cache_dtype="int8" if shape.kind == "decode" else "bf16")
+        tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+        want_basis = {"active_params": jcfg.active_param_count(), "tokens": tokens,
+                      "multiplier": 6 if shape.kind == "train" else 2}
+        _, meta, cfg = dryrun.lower_cell(arch, shape_name, mesh)
+        assert meta == want, (arch, shape_name)
+        assert dryrun.model_flops_basis(meta, cfg) == want_basis, (arch, shape_name)
+
+
+# ----------------------------------------------------------------------
+# against the reference's compiled programs
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("arch, kind", FLOP_CASES, ids=[f"{a}-{k}" for a, k in FLOP_CASES])
+def test_one_device_flops_match_reference(ref, smoke, arch, kind):
+    lowered, _, _ = _lower(arch, kind, (1, 1))
+    counts, _ = dryrun.trace_counts(lowered, scale=False)
+    want = ref[(arch, kind, (1, 1))]["flops"]
+    ratio = counts["flops"] / want
+    if (arch, kind) in PINNED:
+        assert abs(ratio - PINNED[(arch, kind)]) < 5e-4, ratio
+    else:
+        assert abs(ratio - 1) <= 1e-3, ratio
+    assert lowered.memory["argument_size_in_bytes"] == ref[(arch, kind, (1, 1))]["argument"]
+
+
+@pytest.mark.parametrize("arch, kind, mesh", MEMORY_CASES,
+                         ids=[f"{a}-{k}-{'x'.join(map(str, m))}" for a, k, m in MEMORY_CASES])
+def test_memory_matches_reference(ref, smoke, arch, kind, mesh):
+    want = ref[(arch, kind, mesh)]
+    lowered, _, _ = _lower(arch, kind, mesh)
+    assert lowered.memory["argument_size_in_bytes"] == want["argument"]
+    assert lowered.memory.get("alias_size_in_bytes", 0) == want["alias"]
+    if kind == "prefill":
+        traced = lowered.trace(lowered.layer_counts(), 1)
+        counts = lowered.counts(traced)
+        # XLA's output buffer also holds the result tuple's index table,
+        # one 8-byte pointer per leaf
+        n_leaves = len(torch.utils._pytree.tree_leaves(traced[2]))
+        assert counts["output_bytes"] + 8 * n_leaves == want["output"]
+
+
+# ----------------------------------------------------------------------
+# the ZeRO-1 collective model
+# ----------------------------------------------------------------------
+def test_zero1_collectives_on_a_two_leaf_tree():
+    """Leaf a (8, 6), params spec (None, "model"): its ZeRO-1 spec puts data
+    on dim 0, so each microbatch reduce-scatters its f32 gradient, 8 x 3 x 4
+    = 96 bytes a device on (4, 2), and the step all-gathers its bf16 shard,
+    2 x 3 x 2 = 12 bytes.  Leaf b (3, 5): no dim divides by 4, so its
+    gradient is all-reduced, 3 x 5 x 4 = 60 bytes, and nothing is gathered."""
+    mesh = _mesh((4, 2))
+    rules = ShardingRules(get_smoke("deepseek_7b"), mesh)
+    shapes = {"a": ((8, 6), P(None, "model")), "b": ((3, 5), P(None, None))}
+    n_micro = 2
+    with record_constraints() as records:
+        for shape, pspec in shapes.values():
+            ospec = rules.named(rules.zero1_spec(pspec, shape))
+            with_sharding_constraint(torch.zeros(shape, device="meta"), ospec,
+                                     site="grad_accumulator")
+            for _ in range(n_micro):
+                with_sharding_constraint(torch.zeros(shape, device="meta"), ospec, site="grad")
+            with_sharding_constraint(torch.zeros(shape, dtype=torch.bfloat16, device="meta"),
+                                     rules.named(pspec), site="params")
+        with_sharding_constraint(torch.zeros((4, 6), device="meta"),
+                                 rules.named(P(("data",), None)))  # an activation
+    assert [r.site for r in records].count("grad") == 2 * n_micro
+    stats = HloStats()
+    dryrun.zero1_collectives(records, rules, stats)
+    assert stats.bytes_by_kind == {"reduce-scatter": 2 * 96, "all-reduce": 2 * 60,
+                                   "all-gather": 12}
+    assert stats.count_by_kind == {"reduce-scatter": 2, "all-reduce": 2, "all-gather": 1}
+    assert stats.collective_bytes == 2 * 96 + 2 * 60 + 12
+    # the same records priced on (2, 2, 2): dp 4 again, the same traffic
+    stats3 = HloStats()
+    dryrun.zero1_collectives(records, ShardingRules(get_smoke("deepseek_7b"), _mesh((2, 2, 2))),
+                             stats3)
+    assert stats3.bytes_by_kind == stats.bytes_by_kind
+    # one data position: nothing moves
+    stats1 = HloStats()
+    dryrun.zero1_collectives(records, ShardingRules(get_smoke("deepseek_7b"), _mesh((1, 2))),
+                             stats1)
+    assert stats1.collective_bytes == 0 and stats1.count_by_kind == {}
+
+
+def test_train_step_records_its_sites(smoke):
+    lowered, _, _ = _lower("deepseek_7b", "train", (4, 2))
+    counts, records, _ = lowered.trace(lowered.layer_counts(), N_MICRO_SMALL)
+    sites = [r.site for r in records]
+    n_leaves = sites.count("params")
+    assert n_leaves > 0
+    assert sites.count("grad_accumulator") == n_leaves
+    assert sites.count("grad") == N_MICRO_SMALL * n_leaves
+    assert all(r.dtype == torch.float32 for r in records if r.site == "grad")
+    assert sites.count("activation") > 0
+
+
+# ----------------------------------------------------------------------
+# a full-width cell through run_cell
+# ----------------------------------------------------------------------
+def test_run_cell_full_width_decode(tmp_path):
+    r = dryrun.run_cell("deepseek_7b", "decode_32k", "single", str(tmp_path))
+    written = json.loads((tmp_path / "deepseek_7b__decode_32k__single.json").read_text())
+    assert written == json.loads(json.dumps(r))
+    assert r["n_devices"] == 256 and r["mesh"] == "single"
+    assert r["memory"]["argument_size_in_bytes"] > r["memory"]["alias_size_in_bytes"] > 0
+    roof = r["roofline"]
+    for key in ("compute_s", "memory_s", "collective_s", "bound_s", "ideal_memory_s",
+                "roofline_fraction", "useful_flops_ratio"):
+        assert math.isfinite(roof[key]), key
+    assert roof["memory_s"] >= roof["ideal_memory_s"] > 0
+    assert roof["dominant"] == "memory" and 0 < roof["roofline_fraction"] <= 1
+    assert r["cost"]["flops"] == r["program"]["flops"] / 256
+    assert r["collectives"]["collective_model"] == "zero1"
