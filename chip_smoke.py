@@ -92,6 +92,15 @@ drives the port's two paths:
   the measured share of the roofline printed beside the prediction; and the
   broadcast dry run of granite_moe_1b on both production meshes, its rounds
   the port's round lists'.
+* the paper's evaluation harness (phase ``benches``): the six scripts of
+  ``benchmarks_torch/`` in-process at their defaults on the card
+  (``bench_scale_1000.py --mega``; the giga tiers are the phases above),
+  each artifact held field for field by ``compare.artifact_diff`` against
+  the unchanged reference script's output in ``benchmarks_torch/reference/``
+  (every in-bench assertion raising), K1 launched in each, each bench's
+  walls printed beside the reference's CPU walls; then
+  ``paper_figures.ALL`` at full size, every row of Figures 11-18 equal to
+  the reference's CSV.
 * the mesh layer (phase ``mesh``): ``granite_moe_1b`` at full width under
   the production (16, 16) mesh, whose 256 positions are the one card (dp
   16, so each MoE layer routes 16 shards of tokens apart):
@@ -308,6 +317,21 @@ DRYRUN_MEASURED = (  # arch, (shape name, seq_len, batch, kind), n_micro
 DRYRUN_REPS = 3
 BCAST_DRYRUN = (("naive", False), ("allgather", False), ("binomial", False),
                 ("pipelined", False), ("pipelined", True))
+
+# Phase benches: the six scripts of benchmarks_torch/ at their defaults on the
+# card, as (artifact, script, arguments), each held by compare.artifact_diff
+# against the unchanged reference script's output in
+# benchmarks_torch/reference/; bench_scale_1000 with --mega and without
+# --giga, whose two tiers phases giga_tier and giga_replay drive, so those two
+# subtrees of the reference's artifact are left out.  Then paper_figures.ALL
+# at full size: the rows of Figures 11-18 equal to the reference's CSV;
+# Figures 19 and 20 time and compress urandom block stores (held in the CPU
+# tests with a seeded urandom).
+BENCHES = (("scale", "bench_scale_1000", ["--mega"]), ("registry", "bench_registry_sweep", []),
+           ("blocks", "bench_blocks", []), ("trace", "bench_trace_replay", []),
+           ("placement", "bench_placement", []), ("serving", "bench_serving", []))
+BENCH_SKIP = {"scale": ("giga_burst", "giga_replay")}
+HELD_FIGURES = 8  # Figures 11-18 of paper_figures.ALL
 
 # K2 and K4 are timed with a cold L2: each call rotates through operand sets
 # that together exceed this, so no launch finds its operands in the 50 MB L2
@@ -2821,6 +2845,86 @@ def phase_dryrun() -> dict:
     return out
 
 
+def load_script(path: Path):
+    """A ``benchmarks_torch/`` file, imported by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_benchmarks_torch_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def walls(port, ref, path: str = "") -> dict:
+    """Every ``*wall_s`` key of the reference's artifact that the card's also
+    has: path -> (the card's seconds, the reference's CPU seconds)."""
+    out = {}
+    if isinstance(ref, dict) and isinstance(port, dict):
+        for key, val in ref.items():
+            sub = f"{path}.{key}" if path else key
+            if key not in port:
+                continue
+            if key.endswith("wall_s") and isinstance(val, float):
+                out[sub] = (port[key], val)
+            else:
+                out.update(walls(port[key], val, sub))
+    return out
+
+
+def phase_benches() -> dict:
+    """The paper's evaluation harness on the card, held against the
+    reference scripts' outputs."""
+    import torch
+
+    from repro_torch.kernels import cap_chain as cc
+
+    bench_dir, ref_dir = ROOT / "benchmarks_torch", ROOT / "benchmarks_torch" / "reference"
+    compare = load_script(bench_dir / "compare.py")
+    outdir = ROOT / "results" / "benches_torch"
+    outdir.mkdir(parents=True, exist_ok=True)
+    out = {"benches": {}, "figures": {}}
+    for name, script, argv in BENCHES:
+        mod = load_script(bench_dir / f"{script}.py")
+        path = outdir / f"BENCH_torch_{name}.json"
+        gc.collect()
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        mod.main([*argv, "--out", str(path)])  # in-bench assertions raise
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = cc.cap_chain_rates.launches
+        port = json.loads(path.read_text())
+        ref = json.loads((ref_dir / f"BENCH_{name}.json").read_text())
+        diff = compare.artifact_diff(name, port, ref, skip=BENCH_SKIP.get(name, ()))
+        check(diff == [], f"bench {name}: {len(diff)} fields differ from the reference: {diff[:5]}")
+        check(k1 > 0, f"bench {name}: K1 never launched")
+        dev = port["device"]
+        check(sum(dev["k1_launches"].values()) == k1 and dev["power_limit"] != "cpu",
+              f"bench {name}: device block {dev} vs {k1} launches")
+        row = dict(script_wall_s=wall, k1_launches=k1, runs=dev["k1_launches"])
+        emit("bench", name=name, card_script_wall_s=wall, k1_launches=k1,
+             walls_card_vs_reference_cpu_s=walls(port, ref))
+        out["benches"][name] = row
+
+    figures = load_script(bench_dir / "paper_figures.py")
+    want = (ref_dir / "paper_figures.csv").read_text().splitlines()
+    for i, fn in enumerate(figures.ALL):
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        rows = fn()
+        wall = time.perf_counter() - t0
+        lines = [f"{name},{value:.4f},{derived}" for name, value, derived in rows]
+        if i < HELD_FIGURES:  # every row, in the reference's order
+            prefix = fn.__name__.split("_", 1)[0] + "/"
+            ref_rows = [line for line in want if line.startswith(prefix)]
+            check(lines == ref_rows, f"{fn.__name__}: {lines} vs the reference CSV's {ref_rows}")
+        out["figures"][fn.__name__] = dict(wall_s=wall, k1_launches=cc.cap_chain_rates.launches,
+                                           rows=len(rows), held=i < HELD_FIGURES)
+    check(sum(f["k1_launches"] for f in out["figures"].values()) > 0, "K1 never launched in the figures")
+    emit("benches", **out)
+    return out
+
+
 def time_k3(bh: int, t: int, hd: int, dtype: str = "bfloat16") -> dict:
     """K3 at one shape: the bf16 tensor-core instance or the float32 SIMT one,
     beside causal SDPA on the same inputs."""
@@ -3067,6 +3171,7 @@ def main() -> int:
     mesh = timed(phase_mesh, train)
     timed(phase_broadcast)
     timed(phase_dryrun)
+    benches = timed(phase_benches)
     times = timed(phase_timings, giga)
 
     src = "src/repro_torch/kernels/csrc/cap_chain.cu"
@@ -3083,6 +3188,9 @@ def main() -> int:
          "wrapper_ms": mean["wrapper_ms"], "widest": times["k1"]["widest"],
          "numpy_ms": mean["numpy_ms"], "paper_tier_launches": paper["k1_launches"],
          "replay_launches": replay["k1_launches"],
+         "bench_launches": {k: v["k1_launches"] for k, v in benches["benches"].items()},
+         "bench_launches_by_run": {k: v["runs"] for k, v in benches["benches"].items()},
+         "figure_launches": {k: v["k1_launches"] for k, v in benches["figures"].items()},
          "replay_golden_launches": {k: v["k1_launches"] for k, v in goldens.items()}},
         {"name": "nic_flow_counts", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/cap_chain.py:137",
@@ -3143,6 +3251,8 @@ def main() -> int:
         check(not k["on_main_path"] or k["launches"] > 0, f"{k['name']} never launched on the main path")
         check(k.get("served_operand_launches", 1) > 0, f"{k['name']} never launched on served operands")
         check(k.get("replay_launches", 1) > 0, f"{k['name']} never launched in the giga replay")
+        check(all(n > 0 for n in k.get("bench_launches", {}).values()),
+              f"{k['name']} never launched in a bench")
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=phase_s)
     print(json.dumps({"kernels": kernels}))
     print(smi)

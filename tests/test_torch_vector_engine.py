@@ -266,6 +266,14 @@ def test_port_imports_neither_jax_nor_reference():
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, (path, bad)
+    # the port's evaluation harness: not the reference's harness either
+    harness = (sorted((ROOT / "benchmarks_torch").rglob("*.py"))
+               + [ROOT / "scripts" / "torch_bench_summary.py"])
+    assert {"bench_scale_1000.py", "paper_figures.py", "roofline.py", "run.py",
+            "compare.py", "torch_bench_summary.py"} <= {f.name for f in harness}
+    for path in harness:
+        bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "benchmarks"}
+        assert not bad, (path, bad)
 
 
 def test_training_path_runs_with_jax_and_reference_blocked(tmp_path):
