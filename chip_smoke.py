@@ -300,12 +300,16 @@ H100_NVLINK_ONE_WAY = 450e9
 
 # The dry runs (phase dryrun; no kernel: they trace `chunked`, as the
 # reference lowers it).  (a) Three production cells traced on meta through
-# launch/dryrun.py::run_cell on the (16, 16) mesh.  (b) Three cells at the
-# shapes the script already runs, on a (1, 1) mesh, bf16 params, `chunked`:
-# the dry run's prediction beside a measured run on the card, whose
-# FlopCounterMode FLOPs must equal the meta trace's and whose arguments'
-# bytes must equal argument_size_in_bytes.  (c) The broadcast dry run of
-# granite_moe_1b on both production meshes, every schedule.
+# launch/dryrun.py::run_cell on the (16, 16) mesh, each with its collective
+# bytes by source (ZeRO-1, tensor-parallel), the tensor-parallel term > 0.
+# (b) Three cells at the shapes the script already runs, on a (1, 1) mesh,
+# bf16 params, `chunked`: the dry run's prediction beside a measured run on
+# the card, whose FlopCounterMode FLOPs must equal the meta trace's and whose
+# arguments' bytes must equal argument_size_in_bytes; then deepseek_7b's
+# prefill and decode at those shapes on the (16, 16) mesh: the card's real
+# step under the sharding tracker, its collective records equal to the meta
+# trace's.  (c) The broadcast dry run of granite_moe_1b on both production
+# meshes, every schedule.
 DRYRUN_CELLS = (("granite_moe_1b", "train_4k"), ("deepseek_7b", "decode_32k"),
                 ("mamba2_130m", "long_500k"))
 DRYRUN_MEASURED = (  # arch, (shape name, seq_len, batch, kind), n_micro
@@ -314,6 +318,7 @@ DRYRUN_MEASURED = (  # arch, (shape name, seq_len, batch, kind), n_micro
     ("deepseek_7b", ("prefill_4x512", 512, 4, "prefill"), None),
     ("deepseek_7b", ("decode_4x1_cache1024", 1024, 4, "decode"), None),
 )
+DRYRUN_TRACKED = [shape for arch, shape, _ in DRYRUN_MEASURED if arch == "deepseek_7b"]
 DRYRUN_REPS = 3
 BCAST_DRYRUN = (("naive", False), ("allgather", False), ("binomial", False),
                 ("pipelined", False), ("pipelined", True))
@@ -2684,7 +2689,10 @@ def phase_broadcast() -> dict:
 
 
 def dryrun_production_cells(outdir: Path) -> list:
-    """(a) Three production cells traced on meta, each roofline printed."""
+    """(a) Three production cells traced on meta, each roofline and its
+    collective bytes by source printed; the tensor-parallel term is > 0 in
+    each (mamba2_130m splits no param over tp 16, but its logits' padded
+    vocab split is gathered on the way out)."""
     from repro_torch.launch import dryrun
 
     out = []
@@ -2697,9 +2705,13 @@ def dryrun_production_cells(outdir: Path) -> list:
                                    "roofline_fraction")]
         check(all(np.isfinite(terms)) and r["memory"]["argument_size_in_bytes"] > 0,
               f"dry run {arch} {shape}: roofline {roof}, memory {r['memory']}")
+        by_source = {src: v["bytes_by_kind"] for src, v in r["collectives"]["by_source"].items()}
+        tp = r["collectives"]["by_source"]["tp"]["collective_bytes"]
+        check(r["collectives"]["collective_model"] == "zero1+tp" and tp > 0,
+              f"dry run {arch} {shape}: tensor-parallel bytes {tp}")
         out.append({"arch": arch, "shape": shape, "host_s": host_s, "traces": r["traces"],
                     "program": r["program"], "memory": r["memory"], "roofline": roof,
-                    "collectives": r["collectives"]["bytes_by_kind"]})
+                    "collectives": r["collectives"]["bytes_by_kind"], "by_source": by_source})
     return out
 
 
@@ -2807,6 +2819,56 @@ def measured_cell(arch: str, shape_args, n_micro, params_cache: dict) -> dict:
             "measured_over_bound": measured_s / roof["bound_s"]}
 
 
+def tracked_on_card(shape_args, params) -> dict:
+    """(b) deepseek_7b's step at one of DRYRUN_MEASURED's shapes on the
+    production (16, 16) mesh: traced on meta (unscaled), then the card's real
+    step run once inside the mesh's sharding_context under the sharding
+    tracker, seeded with the card's tensors.  The collective records must be
+    equal, kind, shape, dtype, layout and op: the tracker reads shapes and
+    layouts, not the meta device."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distributed.api import sharding_context
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import DATA, MODEL, analyze_callable
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import model_for
+
+    shape = ShapeConfig(*shape_args)
+    lowered, _, cfg = dryrun.lower_cell("deepseek_7b", shape, make_production_mesh(device="meta"))
+    t0 = time.perf_counter()
+    want = lowered.trace(lowered.layer_counts(), lowered.n_micro)[3]
+    meta_s = time.perf_counter() - t0
+    model = model_for(cfg)
+    batch = make_batch(cfg, shape.seq_len, shape.global_batch, kind=shape.kind, device="cuda")
+    if shape.kind == "prefill":
+        step, args = model.prefill, (params, batch)
+    else:
+        step = model.decode_step
+        args = (params, batch, model.init_cache(shape.global_batch, shape.seq_len,
+                                                device="cuda"))
+    tracker = lowered.tracker(args)
+    t0 = time.perf_counter()
+    with sharding_context(make_production_mesh(), lowered.rules.logical_mapping()):
+        analyze_callable(step, *args, tracker=tracker)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    got = tracker.collectives
+    del args, batch
+    check(got == want and len(got) > 0,
+          f"deepseek_7b {shape.name} on (16, 16): {len(got)} collectives on the card, "
+          f"{len(want)} on meta; first difference "
+          f"{next(((a, b) for a, b in zip(got, want) if a != b), None)}")
+    sizes = {DATA: lowered.rules.dp_size, MODEL: lowered.rules.tp}
+    kinds: dict = {}
+    for c in got:
+        kinds[c.kind] = kinds.get(c.kind, 0) + c.shard_bytes(sizes)
+    return {"shape": shape.name, "collectives": len(got), "bytes_by_kind": kinds,
+            "equal": True, "meta_s": meta_s, "card_s": card_s}
+
+
 def broadcast_dryrun_cells(outdir: Path) -> list:
     """(c) The broadcast dry run of granite_moe_1b, both meshes, every
     schedule, its rounds equal to the port's round lists."""
@@ -2839,6 +2901,8 @@ def phase_dryrun() -> dict:
     params_cache: dict = {}
     out["measured"] = [measured_cell(arch, shape, n_micro, params_cache)
                        for arch, shape, n_micro in DRYRUN_MEASURED]
+    out["tracked"] = [tracked_on_card(shape, params_cache["deepseek_7b"])
+                      for shape in DRYRUN_TRACKED]
     params_cache.clear()
     out["broadcast"] = broadcast_dryrun_cells(outdir / "broadcast_torch")
     emit("dryrun", **out)

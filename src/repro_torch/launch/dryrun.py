@@ -21,10 +21,15 @@ reference's ``ShapeDtypeStruct`` inputs) inside the mesh's
                       (``launch/hlo_analysis.py::analyze_callable``) split
                       evenly over the mesh's devices: an ideal split that
                       counts no replicated work, unlike XLA's per-device HLO;
-  * ``collectives`` — the train step's ZeRO-1 traffic per device, derived
-                      from the constraints ``distributed/api.py`` records
-                      (:func:`zero1_collectives`); tensor-parallel activation
-                      traffic is not modelled (``"collective_model": "zero1"``);
+  * ``collectives`` — per device, from two sources (``"collective_model":
+                      "zero1+tp"``, split in ``by_source``): the train
+                      step's ZeRO-1 traffic over the data axes, derived from
+                      the constraints ``distributed/api.py`` records
+                      (:func:`zero1_collectives`), and the tensor-parallel
+                      traffic over the model axis that XLA's SPMD
+                      partitioner inserts, from the layouts
+                      ``hlo_analysis.ShardingTracker`` follows through the
+                      trace (:func:`tp_collectives`);
   * ``roofline``    — ``hlo_analysis.roofline_terms`` at an H100's rates.
 
 Tracing a full-width step op by op costs host time in proportion to its
@@ -57,7 +62,15 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.distributed.sharding import axis_size
-from repro_torch.launch.hlo_analysis import HBM_BW, HloStats, analyze_callable, roofline_terms
+from repro_torch.launch.hlo_analysis import (
+    DATA,
+    HBM_BW,
+    MODEL,
+    HloStats,
+    ShardingTracker,
+    analyze_callable,
+    roofline_terms,
+)
 from repro_torch.launch.mesh import NamedSharding
 
 # per-arch microbatch counts for train_4k (global batch 256), the reference's
@@ -79,10 +92,18 @@ _MICRO_BASE = 1
 MEMORY_NOTE = ("per-device shard bytes under the sharding rules; no temp or peak bytes: "
                "without a partitioner they are not derivable per device")
 COST_NOTE = "whole program / n_devices: an ideal split that counts no replicated work"
-COLLECTIVE_NOTE = ("ZeRO-1 only: a reduce-scatter (all-reduce where the ZeRO-1 spec adds no "
-                   "data axis) of each f32 gradient per microbatch and an all-gather of each "
-                   "param per step, operand bytes; tensor-parallel activation traffic is not "
-                   "modelled")
+COLLECTIVE_NOTE = ("operand bytes per device, two sources (by_source). zero1: over the data "
+                   "axes, a reduce-scatter (all-reduce where the ZeRO-1 spec adds no data axis) "
+                   "of each f32 gradient per microbatch and an all-gather of each param per "
+                   "step. tp: over the model axis, what XLA's SPMD partitioner inserts for the "
+                   "layouts of params, batch, caches and constraints: an all-reduce after each "
+                   "contraction, gather or sum over a model-split dim, a reduce-scatter or "
+                   "all-gather where a constraint changes the model split, forward, backward "
+                   "and remat recompute, and an all-gather of a result whose model split pads "
+                   "its dim. Not modelled: XLA's collective-permutes and "
+                   "all-to-alls that reshard remat'd values, its all-reduce combiner (each "
+                   "tensor counts once), and data-axis traffic of activations (the loss's "
+                   "scalar sums)")
 
 
 def _cfg_for(arch: str, kind: str = "train", overrides: dict | None = None):
@@ -142,6 +163,16 @@ def _without_data(spec):
         return names or None
 
     return type(spec)(*[keep(part) for part in spec])
+
+
+def tp_collectives(collectives, rules, stats: HloStats) -> None:
+    """Add the tensor-parallel collectives a :class:`ShardingTracker` wrote
+    down, priced per device on ``rules``' mesh, to ``stats``.  Each is in
+    global terms (whole shape, logical spec), so one trace prices every mesh
+    whose layouts it shares."""
+    sizes = {DATA: rules.dp_size, MODEL: rules.tp}
+    for c in collectives:
+        stats.add_collective(c.kind, c.shard_bytes(sizes))
 
 
 def zero1_collectives(records, rules, stats: HloStats) -> None:
@@ -265,38 +296,64 @@ class LoweredCell:
         model = model_for(cfg)
         return model.prefill if self.kind == "prefill" else model.decode_step
 
-    def trace(self, layers: dict, n_micro: int) -> tuple[dict, list, Any]:
+    def tracker(self, args: tuple) -> ShardingTracker:
+        """A tracker for this cell's mesh with the step's arguments laid out
+        by the sharding rules: params, optimizer state, batch, caches."""
+        rules = self.rules
+        tracker = ShardingTracker({DATA: rules.dp_size, MODEL: rules.tp})
+        tracker.seed(args[0], rules.params_shardings(args[0]))
+        if self.kind == "train":
+            tracker.seed(args[1], rules.opt_shardings(args[1]))
+        batch = args[2] if self.kind == "train" else args[1]
+        tracker.seed(batch, rules.batch_shardings(batch))
+        if self.kind == "decode":
+            tracker.seed(args[2], rules.cache_shardings(args[2]))
+        return tracker
+
+    def trace(self, layers: dict, n_micro: int) -> tuple[dict, list, Any, list]:
         """One meta trace at these layer and microbatch counts: the
         program's FLOPs and bytes as integers, the constraints it recorded,
-        and its (meta) result."""
+        its (meta) result, and the tensor-parallel collectives its tracker
+        wrote down."""
         from repro_torch.distributed.api import record_constraints, sharding_context
 
         with self._cut(layers) as cfg:
             args = self.inputs(cfg, n_micro)
             step = self.step(cfg, n_micro)
+            tracker = self.tracker(args)
             with sharding_context(self.mesh, self.rules.logical_mapping()), \
                     record_constraints() as records:
-                stats, out = analyze_callable(step, *args)
-        return {"flops": int(stats.flops), "bytes": int(stats.bytes_accessed)}, records, out
+                stats, out = analyze_callable(step, *args, tracker=tracker)
+        return ({"flops": int(stats.flops), "bytes": int(stats.bytes_accessed)}, records, out,
+                tracker.collectives)
 
     def trace_key(self, layers: dict, n_micro: int) -> tuple:
-        """What a trace depends on: the program, and the mesh only where
-        MoE layers route each data shard apart (records are read by params
-        spec, which depends on the model axis alone)."""
-        mesh = tuple(self.mesh.shape.items()) if self.cfg.moe is not None else self.rules.tp
-        return (self.cfg, self.kind, self.seq_len, self.global_batch // self.n_micro * n_micro,
-                tuple(layers.items()), n_micro, mesh)
+        """What a trace depends on: the program, and of the mesh the model
+        axis and whether the data axes split the batch (the seeds' layouts:
+        records and collectives are kept in global terms and priced per
+        mesh); the whole mesh where MoE layers route each data shard apart."""
+        batch = self.global_batch // self.n_micro * n_micro
+        mesh = (tuple(self.mesh.shape.items()) if self.cfg.moe is not None
+                else (self.rules.tp, batch % self.rules.dp_size == 0))
+        return (self.cfg, self.kind, self.seq_len, batch, tuple(layers.items()), n_micro, mesh)
 
-    def counts(self, traced: tuple[dict, list, Any]) -> dict:
+    def counts(self, traced: tuple[dict, list, Any, list]) -> dict:
         """A trace's counts on this cell's mesh: its FLOPs and bytes, the
-        ZeRO-1 collectives, and for a prefill the output bytes."""
-        counts, records, out = traced
+        collectives of each source (``"zero1:bytes:<kind>"``, ``"tp:..."``)
+        and both together (``"bytes:<kind>"``, ``"count:<kind>"``), and
+        for a prefill the output bytes."""
+        counts, records, out, collectives = traced
         counts = dict(counts)
-        stats = HloStats()
-        zero1_collectives(records, self.rules, stats)
-        for kind, b in stats.bytes_by_kind.items():
-            counts[f"bytes:{kind}"] = int(b)
-            counts[f"count:{kind}"] = int(stats.count_by_kind[kind])
+        for source, price, what in (("zero1", zero1_collectives, records),
+                                    ("tp", tp_collectives, collectives)):
+            stats = HloStats()
+            price(what, self.rules, stats)
+            for kind, b in stats.bytes_by_kind.items():
+                n = int(stats.count_by_kind[kind])
+                counts[f"{source}:bytes:{kind}"] = int(b)
+                counts[f"{source}:count:{kind}"] = n
+                counts[f"bytes:{kind}"] = counts.get(f"bytes:{kind}", 0) + int(b)
+                counts[f"count:{kind}"] = counts.get(f"count:{kind}", 0) + n
         if self.kind == "prefill":
             counts["output_bytes"] = self._prefill_output_bytes(*out)
         return counts
@@ -457,14 +514,22 @@ def analyze(lowered: LoweredCell, meta: dict, cfg, mesh, *, traces: dict | None 
 
     stats = HloStats(flops=counts["flops"] / n_dev, bytes_accessed=counts["bytes"] / n_dev,
                      bytes_raw=counts["bytes"] / n_dev)
+    by_source = {src: HloStats() for src in ("zero1", "tp")}
     for key, val in counts.items():
         if key.startswith("bytes:"):
             kind = key.split(":", 1)[1]
             stats.add_collective(kind, val, counts[f"count:{kind}"])
+        elif key.split(":")[0] in by_source and key.split(":")[1] == "bytes":
+            src, _, kind = key.split(":", 2)
+            by_source[src].add_collective(kind, val, counts[f"{src}:count:{kind}"])
     out["program"] = {"flops": counts["flops"], "bytes_accessed": counts["bytes"]}
     out["cost"] = {"flops": stats.flops, "bytes_accessed": stats.bytes_accessed,
                    "note": COST_NOTE}
-    out["collectives"] = {**stats.to_dict(), "collective_model": "zero1",
+    out["collectives"] = {**stats.to_dict(), "collective_model": "zero1+tp",
+                          "by_source": {src: {k: v for k, v in s.to_dict().items()
+                                              if k in ("collective_bytes", "bytes_by_kind",
+                                                       "count_by_kind")}
+                                        for src, s in by_source.items()},
                           "note": COLLECTIVE_NOTE}
 
     basis = out["model_flops_basis"] = model_flops_basis(meta, cfg)

@@ -19,7 +19,11 @@ run of n/dp consecutive tokens (pod-major over ("pod", "data")), routes
 them at its own capacity C, and fills capacity columns [p·C, (p+1)·C) of
 an (E, dp·C, d) buffer; its combine reads back from those columns, and the
 aux loss is the mean of the shards' own.  The shards are a leading dim of
-one batched computation, not a loop.  Outside a mesh, the one-device
+one batched computation, not a loop.  The inputs and outputs of the two
+are constrained to the layouts of the reference's shard_maps (split over
+data alone; ``site="shard_map"`` for the inputs, whose cotangents the
+reference sums over the model axis), which is where its expert-parallel
+all-gathers and all-reduces come from.  Outside a mesh, the one-device
 branch routes all tokens at one capacity.
 
 DeepSeek-MoE's *shared experts* (always-on) run densely alongside.  The
@@ -159,7 +163,13 @@ def apply_moe(p: PyTree, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tens
     dt = x.dtype
     dp = data_shards(n_tok)
     if dp > 1:
-        buf, read, keep, gate, _, aux, _ = _shard_dispatch_plan(xf, p["router"], m, t, dp)
+        # the reference's dispatch shard_map: its inputs as its in_specs lay
+        # them out, and its buffer as its out_specs P(None, dp_axes, None)
+        # does, each data shard's columns of every expert
+        xs = constrain(xf, ("data", None), site="shard_map")
+        router = constrain(p["router"], (None, None), site="shard_map")
+        buf, read, keep, gate, _, aux, _ = _shard_dispatch_plan(xs, router, m, t, dp)
+        buf = constrain(buf, (None, "data", None))
     else:
         buf, slot, gate, aux, cap = _dispatch_combine_plan(xf, p["router"], m, t)
         n_rows = m.n_experts * cap
@@ -170,6 +180,9 @@ def apply_moe(p: PyTree, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tens
     u = torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(dt))
     h = (F.silu(g) if cfg.act == "swiglu" else _gelu(g)) * u
     ye = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))  # (E,C,d)
+    if dp > 1:  # the inputs of the reference's combine shard_map (in_specs)
+        ye = constrain(ye, (None, "data", None), site="shard_map")
+        gate = constrain(gate, ("data", None), site="shard_map")
 
     got = ye.reshape(-1, d)[read]  # (T,k,d)
     w = (gate * keep.to(_F32)).to(got.dtype)

@@ -1,9 +1,10 @@
 """The dry run's extrapolation is exact.
 
 ``launch/dryrun.py`` traces a cell at a few layer counts and at one and
-two microbatches and extrapolates its counts (FLOPs, bytes, ZeRO-1
-collectives, prefill output bytes) to the full cell.  Here the extrapolated
-counts equal an unscaled trace's, integer for integer, on meta tensors:
+two microbatches and extrapolates its counts (FLOPs, bytes, ZeRO-1 and
+tensor-parallel collectives, prefill output bytes) to the full cell.  Here
+the extrapolated counts equal an unscaled trace's, integer for integer, on
+meta tensors, the tensor-parallel ones non-zero on the mesh's model axis of 2:
 
 * every layer count, for all ten smoke configs, prefill and decode, each
   deepened so that its periodic stage repeats four times (nodes 2, 3;
@@ -76,22 +77,23 @@ def test_layer_extrapolation_is_exact(arch, kind):
     lowered = _lower(arch, kind, n_micro=1, n_layers=depth)
     assert lowered.variables and "n_micro" not in lowered.variables
     counts = _assert_exact(lowered)
-    if kind == "train":
-        assert counts["count:reduce-scatter"] > 0 and counts["count:all-gather"] > 0
+    assert counts["tp:count:all-reduce"] > 0 and counts["tp:bytes:all-reduce"] > 0
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_microbatch_extrapolation_is_exact(arch):
     lowered = _lower(arch, "train", n_micro=3)
     assert lowered.variables == {"n_micro": (1, 3, 1)}
-    _assert_exact(lowered)
+    counts = _assert_exact(lowered)
+    assert counts["tp:count:all-reduce"] > 0
 
 
 @pytest.mark.parametrize("arch", ["deepseek_7b", "granite_moe_1b"])
 def test_layers_and_microbatches_together(arch):
     lowered = _lower(arch, "train", n_micro=3, n_layers=5)
     assert "n_micro" in lowered.variables and len(lowered.variables) >= 2
-    _assert_exact(lowered)
+    counts = _assert_exact(lowered)
+    assert counts["tp:count:all-reduce"] > 0
 
 
 def test_scaling_refuses_a_grid_that_splits_other_leaves():

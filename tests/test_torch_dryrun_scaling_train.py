@@ -5,7 +5,8 @@ five times (whisper: 5 decoder and 6 encoder layers), one microbatch: the
 counts extrapolated from layer counts 2, 3 and 4 (a train step's bytes are
 quadratic in the repeats: the backward of each repeat's slice of a stacked
 param writes a zero-filled gradient of the whole stack) equal an unscaled
-trace's, integer for integer, ZeRO-1 collectives included.  The helpers and
+trace's, integer for integer, ZeRO-1 and tensor-parallel collectives
+included.  The helpers and
 the other kinds are in ``test_torch_dryrun_scaling.py``.
 """
 import pytest
@@ -21,3 +22,5 @@ def test_train_layer_extrapolation_is_exact(arch):
     assert all(degree == 2 for _, _, degree in lowered.variables.values())
     counts = _assert_exact(lowered)
     assert counts["count:reduce-scatter"] > 0 and counts["count:all-gather"] > 0
+    assert counts["zero1:count:reduce-scatter"] == counts["count:reduce-scatter"]
+    assert counts["tp:count:all-reduce"] > 0
