@@ -32,8 +32,11 @@ drives the port's two paths:
 * serving: ``ServeEngine`` at full width, random float32 master weights
   drawn on the card from a seed, answering 8 requests of 512 prompt tokens
   with 16 new tokens each, 4 to a batch:
-  - ``deepseek_7b`` (30 layers, d 4096) with ``attn_impl="pallas"``, so the
-    flash-attention kernel (K3) runs at its serving shape; a float32
+  - ``deepseek_7b`` (30 layers, d 4096) with ``attn_impl="pallas"``,
+    cold-started from its own 27.6 GB block checkpoint (saved on the
+    host's cores, freed, restored with ``lazy=True`` against a ``meta``
+    tree: one copy on the card; every leaf's fingerprint equal to the
+    saved one's), so the flash-attention kernel (K3) runs at its serving shape; a float32
     prefill through K3 and through ``chunked`` must agree (a bf16 one is
     compared and reported); the
     decode-attention kernel (K4) runs through ``ops.decode_attention`` on
@@ -52,8 +55,15 @@ drives the port's two paths:
     launches; the param tree must hold the reference's 759,592,960; an f32
     prefill through K3 against ``chunked``; and a 2 + 2 layer cut at full
     width served 24 steps on the card against the port's CPU path;
+  - ``gemma3_1b`` (26 layers, d 1152, 4 heads x 256, 22 local layers with a
+    512-token window) with ``attn_impl="pallas"`` and 1,024-token prompts,
+    cold-started from its 4.0 GB checkpoint, whose first fetch is a real
+    prefix (the manifest's blocks for the embedding, layer 0 and the final
+    norm); every leaf bit for bit the saved one; K3's windowed and global
+    hd-256 instances counted apart (44 + 8); an f32 prefill through K3
+    against ``chunked``;
   - and the block-checkpoint cold start (save, lazy restore, serve) on
-    deepseek_7b's smoke config.
+    deepseek_7b's smoke config, card against CPU.
 * training (phase ``train``; the training path launches no kernel, as the
   reference trains through ``full``/``chunked`` attention and its Pallas
   kernels have no backward):
@@ -184,6 +194,7 @@ K3_SWEEP = [(8, 256, 64, None), (2, 512, 64, None), (4, 256, 128, None),
             (4, 100, 64, None), (2, 100, 128, 30)]
 K3_SERVE = (128, 512, 128, None)
 K3_HD256 = (16, 1024, 256)  # gemma3_1b's global layer: 4 requests x 4 heads, T 1024
+GEMMA_WINDOW = 512  # and its 22 local layers' sliding window
 # bf16 against the plain version: 2e-2 abs and 2e-3 + 2e-2 |want| at once
 # (the second breaks when a late row, output ~0.1, loses a KV tile); against
 # flash_attention_tiled_ref, which shares the kernel's rounding points,
@@ -220,6 +231,16 @@ K5_TILED = (1e-3, 1e-2)
 K5_PAIRS_SHAPES = [(256, 2, 128), (96, 2, 48)]
 
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_BATCH = 8, 512, 16, 4
+# gemma3_1b is served with 1,024-token prompts: its 22 local layers' 512-token
+# window bites (at 512 tokens it would not).
+GEMMA_PROMPT = 1024
+# The JAX package's init tree for gemma3_1b holds 999,826,048 parameters
+# (jax.eval_shape of its model_for(cfg).init); cfg.param_count() leaves out
+# the q and k norms of its 26 layers, 999,812,736.
+TREE_PARAMS = {"gemma3_1b": 999_826_048}
+# Block checkpoints of the full-width cold starts go under the checkout's
+# gitignored build/ (the checkout's disk; deepseek_7b's is ~26 GB).
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
 # whisper_medium served through the model facade (ServeEngine feeds tokens
 # only, in either package): 8 requests, 4 to a batch, each with its own
@@ -1448,13 +1469,176 @@ def launch_counts() -> dict:
             "ssd_scan_bhtpn": ssd_scan.ssd_scan_bhtpn.launches}
 
 
-def serve_traffic(cfg, seed: int = 0) -> dict:
+def host_rss_bytes() -> int:
+    import os
+
+    return int(Path("/proc/self/statm").read_text().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def release_host_memory() -> tuple[int, int]:
+    """The resident bytes, then those after glibc's ``malloc_trim`` hands the
+    heap's free pages back to the system (freed blocks of a restore may stay
+    in its arenas otherwise; a no-op where there is no glibc)."""
+    import ctypes
+
+    before = host_rss_bytes()
+    with contextlib.suppress(OSError, AttributeError):
+        ctypes.CDLL(None).malloc_trim(0)
+    return before, host_rss_bytes()
+
+
+class HostPeak:
+    """The process's largest resident set while the block runs, sampled every
+    10 ms from ``/proc/self/statm`` (resetting the kernel's own high-water
+    mark through ``/proc/self/clear_refs`` may be refused)."""
+
+    def __enter__(self) -> "HostPeak":
+        import threading
+
+        self.start = self.bytes = host_rss_bytes()  # at entry, and the largest since
+        self._stop = threading.Event()
+
+        def sample() -> None:
+            while not self._stop.wait(0.01):
+                self.bytes = max(self.bytes, host_rss_bytes())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def fingerprint(x) -> int:
+    """A 64-bit sum of a tensor's 16- or 32-bit words on its device, word i
+    weighted by the odd 2i + 1: a change in any one word always changes it,
+    and unrelated contents collide with chance ~2**-64."""
+    import torch
+
+    flat = x.detach().reshape(-1)
+    check(flat.element_size() in (2, 4), f"fingerprint of {flat.dtype}")
+    words = flat.view(torch.int32 if flat.element_size() == 4 else torch.int16)
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    step = 1 << 26
+    for lo in range(0, words.numel(), step):
+        w = words[lo:lo + step].to(torch.int64)
+        weight = torch.arange(2 * lo + 1, 2 * (lo + w.numel()) + 1, 2, dtype=torch.int64, device=x.device)
+        total += (w * weight).sum()
+    return int(total)
+
+
+def first_fetch_bytes(doc: dict, first) -> int:
+    """The compressed bytes of the blocks that the checkpoint manifest ``doc``
+    says cover the leaves matching ``first``."""
+    m = doc["block_manifest"]
+    bs, offsets = m["block_size"], m["offsets"]
+    blocks = set()
+    for leaf in doc["leaves"]:
+        if first(leaf["path"]) and leaf["nbytes"] > 0:
+            blocks.update(range(leaf["offset"] // bs, (leaf["offset"] + leaf["nbytes"] - 1) // bs + 1))
+    return sum(offsets[i + 1] - offsets[i] for i in blocks)
+
+
+def cold_start_engine(cfg, seed: int, ckpt_dir: Path, exact: bool) -> tuple:
+    """``launch/serve.py``'s flow on the card: ``cfg``'s float32 master weights
+    drawn on the card from ``seed``, saved as a block checkpoint in
+    ``ckpt_dir``, freed, and a ServeEngine cold-started from the checkpoint
+    with ``lazy=True`` against a ``meta`` tree, so the card holds one copy.
+    Every restored leaf must equal the saved one: by fingerprint, and with
+    ``exact`` also bit for bit against a host copy of the saved leaves.
+    The first fetch must be the blocks the manifest says cover the first
+    leaves, the total every block.  Returns (engine, fields)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.blockstore import default_workers
+    from repro_torch.models.params import MetaGenerator, tree_leaves_with_path
+    from repro_torch.serving.engine import FIRST_LEAF_PRED, ServeEngine
+
+    eng = ServeEngine(cfg, max_batch=SERVE_BATCH, device="cuda")
+    t0 = time.perf_counter()
+    params = eng.model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [x for _, x in tree_leaves_with_path(params)]
+    n_params = sum(x.numel() for x in leaves)
+    want = TREE_PARAMS.get(cfg.name, cfg.param_count())
+    check(n_params == want, f"param count {n_params} vs {want}")
+    raw_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(ckpt_dir).free
+    check(free >= raw_bytes, f"{ckpt_dir} has {free:,} bytes free; the checkpoint needs about {raw_bytes:,}")
+    saved = [fingerprint(x) for x in leaves]
+    mgr = CheckpointManager(str(ckpt_dir))
+    with HostPeak() as save_peak:
+        t0 = time.perf_counter()
+        mgr.save(0, params)
+        save_s = time.perf_counter() - t0
+    # (after the save, so that its host peak is the save's own; the restore's
+    # then includes this copy)
+    host_copy = [x.cpu() for x in leaves] if exact else []
+    del leaves, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    doc = json.loads((ckpt_dir / "ckpt_00000000.json").read_text())
+    compressed = doc["block_manifest"]["offsets"][-1]
+    check(doc["block_manifest"]["raw_size"] == raw_bytes, "checkpoint raw size")
+    like = eng.model.init(MetaGenerator())
+    torch.cuda.reset_peak_memory_stats()
+    with HostPeak() as restore_peak:
+        eng.start(mgr, 0, like, lazy=True)
+        torch.cuda.synchronize()
+    restore_device_peak = torch.cuda.max_memory_allocated()
+    stats = eng.cold_start_stats
+    want_first = first_fetch_bytes(doc, FIRST_LEAF_PRED)
+    check(stats["first_fetch_compressed_bytes"] == want_first,
+          f"first fetch {stats['first_fetch_compressed_bytes']} vs the manifest's {want_first}")
+    check(stats["total_fetch_compressed_bytes"] == compressed,
+          f"total fetch {stats['total_fetch_compressed_bytes']} vs {compressed}")
+    got = [x for _, x in tree_leaves_with_path(eng.params)]
+    check(all(x.is_cuda for x in got), "restored leaves on the card")
+    check([fingerprint(x) for x in got] == saved, "restored leaves' fingerprints vs the saved ones")
+    if exact:
+        for i, (g, w) in enumerate(zip(got, host_copy, strict=True)):
+            check(g.dtype == w.dtype and torch.equal(g.cpu().view(-1).view(torch.uint8),
+                                                      w.view(-1).view(torch.uint8)),
+                  f"restored leaf {i} vs the saved one, bit for bit")
+    host_copy_bytes = sum(x.numel() * x.element_size() for x in host_copy)
+    del got, host_copy
+    gc.collect()
+    rss_after, rss_trimmed = release_host_memory()
+    first_leaves = [m["path"] for m in doc["leaves"] if FIRST_LEAF_PRED(m["path"])]
+    fields = dict(
+        weights_init_s=init_s, save_s=save_s, save_mb_per_s=raw_bytes / save_s / 1e6,
+        host_threads=default_workers(), raw_bytes=raw_bytes, compressed_bytes=compressed,
+        compression_ratio=compressed / raw_bytes, n_blocks=doc["block_manifest"]["n_blocks"],
+        codec=doc["block_manifest"]["codec"], first_leaves=len(first_leaves), leaves=len(doc["leaves"]),
+        first_fetch_share=stats["first_fetch_compressed_bytes"] / compressed,
+        cold_start_stats=stats, restore_mb_per_s=raw_bytes / stats["t_full_s"] / 1e6,
+        save_host_peak_bytes=save_peak.bytes, save_host_rss_before_bytes=save_peak.start,
+        restore_host_peak_bytes=restore_peak.bytes, restore_host_rss_before_bytes=restore_peak.start,
+        restore_device_peak_bytes=restore_device_peak,
+        host_copy_bytes=host_copy_bytes, host_rss_after_start_bytes=rss_after,
+        host_rss_after_malloc_trim_bytes=rss_trimmed,
+        leaves_checked="fingerprint + bit for bit" if exact else "fingerprint",
+    )
+    return eng, fields
+
+
+def serve_traffic(cfg, seed: int = 0, prompt_len: int = SERVE_PROMPT, cold_start: bool = False,
+                  exact: bool = False) -> dict:
     """``cfg`` at full width through ServeEngine on the card: float32 master
-    weights drawn on the card from ``seed``, then 8 requests of 512 prompt
-    tokens and 16 new tokens, 4 to a batch.  Every kernel count is set to 0
-    just before the requests are submitted and read just after the last
-    finishes."""
+    weights drawn on the card from ``seed`` (with ``cold_start``, saved and
+    cold-started from their block checkpoint, ``cold_start_engine``), then 8
+    requests of ``prompt_len`` tokens and 16 new tokens, 4 to a batch.  Every
+    kernel count is set to 0 just before the requests are submitted and read
+    just after the last finishes."""
     import dataclasses
+    import shutil
 
     import torch
 
@@ -1463,14 +1647,26 @@ def serve_traffic(cfg, seed: int = 0) -> dict:
     from repro_torch.serving.engine import ServeEngine
 
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    eng = ServeEngine(cfg, max_batch=SERVE_BATCH, device="cuda")
-    params = eng.model.init(torch.Generator(device="cuda").manual_seed(seed))
-    eng.set_params(params)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(x.numel() for _, x in tree_leaves_with_path(params))
-    check(n_params == cfg.param_count(), f"param count {n_params} vs {cfg.param_count()}")
+    cold = {}
+    if cold_start:
+        ckpt_dir = CKPT_DIR / cfg.name
+        try:
+            eng, cold = cold_start_engine(cfg, seed, ckpt_dir, exact)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        # the cold path: the restore (ServeEngine.start), then the first token
+        params, ready_s = eng.params, cold["cold_start_stats"]["t_full_s"]
+        n_params = sum(x.numel() for _, x in tree_leaves_with_path(params))
+    else:
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, max_batch=SERVE_BATCH, device="cuda")
+        params = eng.model.init(torch.Generator(device="cuda").manual_seed(seed))
+        eng.set_params(params)
+        torch.cuda.synchronize()
+        ready_s = time.perf_counter() - t0
+        cold["weights_init_s"] = ready_s
+        n_params = sum(x.numel() for _, x in tree_leaves_with_path(params))
+        check(n_params == cfg.param_count(), f"param count {n_params} vs {cfg.param_count()}")
 
     walls = {"prefill": [], "decode": []}
 
@@ -1486,7 +1682,7 @@ def serve_traffic(cfg, seed: int = 0) -> dict:
     model = eng.model
     eng.model = dataclasses.replace(model, prefill=timed("prefill", model.prefill),
                                     decode_step=timed("decode", model.decode_step))
-    prompts = serve_prompts(cfg, SERVE_REQUESTS, SERVE_PROMPT, seed=seed)
+    prompts = serve_prompts(cfg, SERVE_REQUESTS, prompt_len, seed=seed)
     kernels.reset_launches()
     t_serve = time.perf_counter()
     for pr in prompts:
@@ -1507,23 +1703,23 @@ def serve_traffic(cfg, seed: int = 0) -> dict:
     out = dict(
         arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
         compute_dtype=cfg.compute_dtype, attn_impl=cfg.attn_impl,
-        requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        requests=SERVE_REQUESTS, prompt_len=prompt_len, new_tokens=SERVE_NEW,
         max_batch=SERVE_BATCH, launches=launches, prefills=n_prefills,
-        decode_steps=len(walls["decode"]), weights_init_s=init_s,
-        cold_path_ttft_s=init_s + ttft[0], ttft_s=ttft,
+        decode_steps=len(walls["decode"]), cold_path_ttft_s=ready_s + ttft[0], ttft_s=ttft,
         latency_s=[r.t_done - r.t_submit for r in done],
         serve_wall_s=serve_s, prefill_wall_s=walls["prefill"], decode_wall_s=sum(walls["decode"]),
         decode_step_mean_s=sum(walls["decode"]) / len(walls["decode"]),
         tokens_per_s=SERVE_REQUESTS * SERVE_NEW / serve_s,
         peak_memory_bytes=torch.cuda.max_memory_allocated(),
-        first_tokens=[r.out_tokens[:4] for r in done],
+        first_tokens=[r.out_tokens[:4] for r in done], **cold,
     )
     return {"out": out, "model": model, "params": params, "prompts": prompts}
 
 
 def phase_serve_full_width() -> dict:
-    """deepseek_7b at full width through ServeEngine on the card, with K3, and
-    K4 on the layer-0 decode operands of every decode step."""
+    """deepseek_7b at full width through ServeEngine on the card, cold-started
+    from its own 27.6 GB block checkpoint, with K3, and K4 on the layer-0
+    decode operands of every decode step."""
     import dataclasses
 
     import torch
@@ -1543,8 +1739,15 @@ def phase_serve_full_width() -> dict:
         return run
 
     with patched(attention, "attend_decode_plus_new", record):
-        served = serve_traffic(cfg)
+        served = serve_traffic(cfg, cold_start=True)
     out, params = served["out"], served["params"]
+    # every deepseek_7b layer folds into stages/0, so the "first" fetch is the
+    # whole checkpoint (the reference's FIRST_LEAF_PRED; ROADMAP Queue 3)
+    stats = out["cold_start_stats"]
+    check(stats["first_fetch_compressed_bytes"] == stats["total_fetch_compressed_bytes"],
+          f"deepseek_7b's first fetch is not the whole checkpoint: {stats}")
+    check(out["peak_memory_bytes"] < 2 * out["raw_bytes"],
+          f"device peak {out['peak_memory_bytes']} from the restore on, two copies {2 * out['raw_bytes']}")
     k3 = out["launches"]["flash_attention_bhtd"]
     check(k3 == cfg.n_layers * out["prefills"], f"K3 launches {k3} vs {cfg.n_layers} x {out['prefills']}")
     check(len(steps) == out["decode_steps"], f"recorded decode steps {len(steps)}")
@@ -1559,6 +1762,49 @@ def phase_serve_full_width() -> dict:
     out["bf16_vs_chunked"] = pallas_vs_chunked(cfg, params, served["prompts"][:SERVE_BATCH],
                                                cfg.compute_dtype)
     emit("serve_full_width", **out)
+    del served, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_gemma3_1b() -> dict:
+    """gemma3_1b at full width, cold-started from its block checkpoint, whose
+    first fetch is a real prefix (the tied embedding, layer 0, the final
+    norm), through ServeEngine on the card with 1,024-token prompts: K3's
+    sliding-window (512) and global instances at hd 256, counted apart."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(get_config("gemma3_1b"), attn_impl="pallas")
+    calls = {"windowed": 0, "global": 0}
+
+    def count(fn):
+        def run(q, k, v, *, window=None, **kw):
+            calls["global" if window is None else "windowed"] += 1
+            return fn(q, k, v, window=window, **kw)
+        return run
+
+    with patched(ops, "flash_attention", count):
+        served = serve_traffic(cfg, prompt_len=GEMMA_PROMPT, cold_start=True, exact=True)
+    out, params = served["out"], served["params"]
+    stats = out["cold_start_stats"]
+    check(stats["first_fetch_compressed_bytes"] < stats["total_fetch_compressed_bytes"],
+          f"gemma3_1b's first fetch is the whole checkpoint: {stats}")
+    specs = cfg.layer_specs()
+    want = {"windowed": sum(not s.is_global for s in specs) * out["prefills"],
+            "global": sum(s.is_global for s in specs) * out["prefills"]}
+    k3 = out["launches"]["flash_attention_bhtd"]
+    check(calls == want and k3 == cfg.n_layers * out["prefills"],
+          f"K3 launches {k3}, by kind {calls}, vs {want}")
+    out["k3_launches"] = k3
+    out["k3_launches_by_kind"] = calls
+    out["window"] = cfg.sliding_window
+    out["f32_check"] = f32_pallas_vs_chunked(cfg, params, served["prompts"][:SERVE_BATCH])
+    emit("serve_gemma3_1b", **out)
     del served, params
     torch.cuda.empty_cache()
     return out
@@ -2989,9 +3235,10 @@ def phase_benches() -> dict:
     return out
 
 
-def time_k3(bh: int, t: int, hd: int, dtype: str = "bfloat16") -> dict:
+def time_k3(bh: int, t: int, hd: int, dtype: str = "bfloat16", window: int | None = None) -> dict:
     """K3 at one shape: the bf16 tensor-core instance or the float32 SIMT one,
-    beside causal SDPA on the same inputs."""
+    beside causal SDPA on the same inputs (with a ``window``, SDPA with the
+    sliding-window mask as a boolean mask)."""
     import torch
 
     from repro_torch.kernels import _build
@@ -3006,24 +3253,31 @@ def time_k3(bh: int, t: int, hd: int, dtype: str = "bfloat16") -> dict:
 
     def launch():
         rc = lib.repro_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                       bh, t, hd, code, scale, 2**31 - 1,
+                                       bh, t, hd, code, scale, 2**31 - 1 if window is None else window,
                                        torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"K3 launch returned {rc}")
 
     b4 = [x.view(4, bh // 4, t, hd) for x in (q, k, v)]
+    if window is None:
+        sdpa = dict(is_causal=True)
+    else:
+        i = torch.arange(t, device="cuda")
+        sdpa = dict(attn_mask=(i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window))
     out = dict(
-        bh=bh, t=t, hd=hd, dtype=dtype,
+        bh=bh, t=t, hd=hd, dtype=dtype, window=window,
         ms=graph_ms(launch, reps=50),
-        plain_ms=event_ms(lambda: fa.flash_attention_torch(q, k, v, scale=scale), iters=20),
-        wrapper_ms=event_ms(lambda: ops.flash_attention(*b4, scale=scale), iters=50),
+        plain_ms=event_ms(lambda: fa.flash_attention_torch(q, k, v, scale=scale, window=window), iters=20),
+        wrapper_ms=event_ms(lambda: ops.flash_attention(*b4, scale=scale, window=window), iters=50),
         library_ms=event_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            *b4, is_causal=True, scale=scale), iters=50),
+            *b4, scale=scale, **sdpa), iters=50),
     )
-    # causal half of 4 BH T^2 hd flops, at the bf16 tensor rate or the f32
-    # FMA rate (the f32 instance runs no tensor core); q, k, v, o once each
+    # 4 BH hd flops a (query, key) pair the mask keeps (causal: about T^2 / 2
+    # pairs), at the bf16 tensor rate or the f32 FMA rate (the f32 instance
+    # runs no tensor core); q, k, v, o once each
+    pairs = t * t / 2 if window is None else sum(min(r + 1, window) for r in range(t))
     width = q.element_size()
     out["bound_ms"], out["bound_by"] = bound_ms(
-        4 * bh * t * hd * width, 4 * bh * t * t * hd / 2,
+        4 * bh * t * hd * width, 4 * bh * pairs * hd,
         BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S)
     out["vs_library"] = out["ms"] / out["library_ms"]
     return out
@@ -3175,6 +3429,7 @@ def phase_timings(giga: dict) -> dict:
         "k2": time_k2(giga["k2_nodes_tensor"], giga["k2_nodes"]),
         "k3": time_k3(*K3_SERVE[:3]),
         "k3_hd256": time_k3(*K3_HD256),
+        "k3_hd256_window": time_k3(*K3_HD256, window=GEMMA_WINDOW),
         "k3_f32": time_k3(*K3_SERVE[:3], dtype="float32"),
         "k3_f32_hd256": time_k3(*K3_HD256, dtype="float32"),
         "k3_whisper": time_k3(*K3_WHISPER),
@@ -3227,6 +3482,7 @@ def main() -> int:
     goldens = timed(phase_replay_goldens)
     replay = timed(phase_giga_replay, bench["giga_replay"])
     serve = timed(phase_serve_full_width)
+    gemma = timed(phase_serve_gemma3_1b)
     mamba = timed(phase_serve_mamba2_130m)
     granite = timed(phase_serve_granite_moe_1b)
     whisper = timed(phase_serve_whisper_medium)
@@ -3276,11 +3532,12 @@ def main() -> int:
          "on_main_path": True, "shape": [k3_t["bh"], k3_t["t"], k3_t["hd"]], "dtype": "bfloat16",
          "wrapper_ms": k3_t["wrapper_ms"], "granite_moe_1b_launches": granite["k3_launches"],
          "whisper_medium_launches": whisper["k3_launches"],
+         "gemma3_1b_launches": gemma["k3_launches_by_kind"],
          "whisper_medium": {**times["k3_whisper"], **k3_check["whisper_medium"]},
          "cold_start_launches": cold["k3_launches"],
          "mesh_prefill_launches": mesh["prefill"]["k3_launches"],
          "granite_moe_1b": {**times["k3_granite"], **k3_check["granite_moe_1b"]},
-         "hd256": times["k3_hd256"],
+         "hd256": times["k3_hd256"], "hd256_window": times["k3_hd256_window"],
          "f32": times["k3_f32"], "f32_hd256": times["k3_f32_hd256"], "instances": build["k3"]},
         {"name": "decode_attention_bhsd", "route": "cuda", "source": csrc + "decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:22",

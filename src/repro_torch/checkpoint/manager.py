@@ -25,6 +25,7 @@ import json
 import os
 import re
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Callable, Iterator, Optional
 
@@ -34,7 +35,7 @@ import torch
 from repro_torch.core.blockstore import (
     DEFAULT_BLOCK_SIZE,
     BlockReader,
-    write_blockstore,
+    write_blockstore_chunks,
 )
 from repro_torch.models.params import tree_leaves_with_path, tree_unflatten
 
@@ -45,16 +46,44 @@ def _leaf_paths(tree: PyTree) -> list[tuple[str, Any]]:
     return [("/".join(map(str, path)), leaf) for path, leaf in tree_leaves_with_path(tree)]
 
 
-def _leaf_bytes(leaf) -> tuple[bytes, str, tuple[int, ...]]:
+def _leaf_spec(leaf) -> tuple[str, tuple[int, ...], int]:
+    """A leaf's dtype name, shape and raw byte count, without touching its data."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            dtype = "bfloat16"
+        else:
+            dtype = str(torch.empty(0, dtype=leaf.dtype).numpy().dtype)
+        return dtype, tuple(leaf.shape), leaf.numel() * leaf.element_size()
+    arr = np.asarray(leaf)
+    return str(arr.dtype), tuple(arr.shape), arr.nbytes
+
+
+def _leaf_buffer(leaf) -> np.ndarray:
+    """A leaf's raw little-endian bytes (bf16 as 16-bit words) as a flat uint8
+    array: a view of a contiguous host leaf, else one host copy."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().tobytes(), "bfloat16", tuple(t.shape)
+            t = t.view(torch.int16)
         leaf = t.numpy()
-    arr = np.asarray(leaf)
+    arr = np.ascontiguousarray(np.asarray(leaf)).reshape(-1)
     if arr.dtype.name == "bfloat16":
-        return arr.view(np.uint16).tobytes(), "bfloat16", tuple(arr.shape)
-    return arr.tobytes(), str(arr.dtype), tuple(arr.shape)
+        arr = arr.view(np.uint16)
+    return arr.view(np.uint8)
+
+
+def _one_ahead(fn: Callable, items: list) -> Iterator:
+    """``map(fn, items)`` with the next item's ``fn`` (a leaf's copy to the
+    host) running on a helper thread while the caller uses the current one."""
+    with ThreadPoolExecutor(1) as ex:
+        ahead = None
+        for item in items:
+            nxt = ex.submit(fn, item)
+            if ahead is not None:
+                yield ahead.result()
+            ahead = nxt
+        if ahead is not None:
+            yield ahead.result()
 
 
 @dataclass
@@ -90,20 +119,31 @@ class CheckpointManager:
         )
 
     def save(self, step: int, tree: PyTree) -> None:
-        """Write ``tree`` (tensors or numpy arrays) as checkpoint ``step``."""
+        """Write ``tree`` (tensors or numpy arrays) as checkpoint ``step``.
+
+        The raw stream is cut into blocks as the leaves' bytes come, never
+        joined.  A synchronous save streams each leaf from where it lies (a
+        device leaf is copied to the host while the one before it is
+        compressed); an asynchronous one copies every leaf's bytes before it
+        returns (one payload on the host), so the caller may change the tree
+        while the blocks are written.
+        """
+        pairs = _leaf_paths(tree)
         metas: list[LeafMeta] = []
-        bufs: list[bytes] = []
         off = 0
-        for path, leaf in _leaf_paths(tree):
-            raw, dtype, shape = _leaf_bytes(leaf)
-            metas.append(LeafMeta(path, shape, dtype, off, len(raw)))
-            bufs.append(raw)
-            off += len(raw)
-        payload = b"".join(bufs)
+        for path, leaf in pairs:
+            dtype, shape, nbytes = _leaf_spec(leaf)
+            metas.append(LeafMeta(path, shape, dtype, off, nbytes))
+            off += nbytes
+        if self.async_save:
+            bufs = [_leaf_buffer(leaf).copy() for _, leaf in pairs]
+            chunks = lambda: iter(bufs)  # noqa: E731
+        else:
+            chunks = lambda: _one_ahead(_leaf_buffer, [leaf for _, leaf in pairs])  # noqa: E731
 
         def write() -> None:
             bpath, mpath = self._paths(step)
-            manifest = write_blockstore(payload, bpath, block_size=self.block_size)
+            manifest = write_blockstore_chunks(chunks(), off, bpath, block_size=self.block_size)
             doc = {
                 "step": step,
                 "block_manifest": manifest.to_dict(),
@@ -158,12 +198,16 @@ class CheckpointManager:
         return doc, metas
 
     @staticmethod
-    def _decode(meta: LeafMeta, raw: bytes, device) -> torch.Tensor:
+    def _load(reader: BlockReader, meta: LeafMeta, device) -> torch.Tensor:
+        """Leaf ``meta`` read straight into its own host memory, then put on
+        ``device`` (a host leaf is that memory)."""
+        buf = torch.empty(meta.nbytes, dtype=torch.uint8)
+        reader.read_range_into(meta.offset, meta.nbytes, buf.numpy())
         if meta.dtype == "bfloat16":
-            bits = np.frombuffer(raw, np.int16).reshape(meta.shape)
-            return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
-        arr = np.frombuffer(raw, np.dtype(meta.dtype)).reshape(meta.shape)
-        return torch.from_numpy(arr.copy()).to(device)
+            leaf = buf.view(torch.bfloat16).reshape(meta.shape)
+        else:
+            leaf = torch.from_numpy(buf.numpy().view(np.dtype(meta.dtype)).reshape(meta.shape))
+        return leaf.to(device)
 
     @staticmethod
     def _zeros(meta: LeafMeta, device) -> torch.Tensor:
@@ -179,7 +223,7 @@ class CheckpointManager:
             leaves = []
             for path, _ in _leaf_paths(like):
                 m = by_path[path]
-                leaves.append(self._decode(m, reader.read_range(m.offset, m.nbytes), device))
+                leaves.append(self._load(reader, m, device))
         return tree_unflatten(like, leaves)
 
     def restore_lazy(
@@ -193,28 +237,35 @@ class CheckpointManager:
         """On-demand restore (paper §3.5): load leaves matching ``first`` now.
 
         Returns (partial tree with zeros elsewhere, finish() to complete it,
-        reader for fetch statistics).  ``finish()`` returns the full tree.
+        reader for fetch statistics).  ``finish()`` returns the full tree:
+        the partial tree's own first leaves, and each other leaf decoded once.
+        ``like`` gives paths and structure only (its leaves may be ``meta``
+        tensors); a caller that drops the partial tree before ``finish()``
+        holds one copy of the weights on ``device``.
         """
         _, metas = self._load_manifest(step)
         reader = BlockReader(self._paths(step)[0])
         by_path = {m.path: m for m in metas}
         paths = [path for path, _ in _leaf_paths(like)]
 
-        def load(pred):
-            leaves = []
-            for path in paths:
-                m = by_path[path]
-                if pred(path):
-                    raw = reader.read_range(m.offset, m.nbytes)
-                    leaves.append(self._decode(m, raw, device))
-                else:
-                    leaves.append(self._zeros(m, device))
-            return tree_unflatten(like, leaves)
-
-        partial_tree = load(first)
+        loaded = {p: self._load(reader, by_path[p], device) for p in paths if first(p)}
+        partial_tree = tree_unflatten(
+            like, [loaded[p] if p in loaded else self._zeros(by_path[p], device) for p in paths]
+        )
 
         def finish() -> PyTree:
-            return load(lambda p: True)
+            leaves = []
+            for p in paths:
+                m = by_path[p]
+                if p in loaded:
+                    # The JAX package reads these leaves again; their blocks
+                    # are cached, so that read only counts their bytes as
+                    # useful once more (read_amplification carries it).
+                    reader.stats.useful_bytes += m.nbytes
+                    leaves.append(loaded[p])
+                else:
+                    leaves.append(self._load(reader, m, device))
+            return tree_unflatten(like, leaves)
 
         return partial_tree, finish, reader
 

@@ -29,14 +29,14 @@ def serve(cfg, *, requests: int = 8, max_new_tokens: int = 8, prompt_len: int = 
 
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.models import model_for
+    from repro_torch.models.params import MetaGenerator
     from repro_torch.serving.engine import ServeEngine
 
     eng = ServeEngine(cfg, max_batch=4, device=device)  # raises early without CUDA
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = model_for(cfg).init(gen)
     mgr = CheckpointManager(ckpt_dir)
-    mgr.save(0, params)
-    eng.start(mgr, 0, params, lazy=True)
+    mgr.save(0, model_for(cfg).init(gen))  # the init params go once saved
+    eng.start(mgr, 0, model_for(cfg).init(MetaGenerator()), lazy=True)
     rng = np.random.default_rng(seed)
     for _ in range(requests):
         eng.submit(rng.integers(0, cfg.vocab_size, size=prompt_len),

@@ -9,7 +9,9 @@ A minimal-but-real batching server, as in the JAX package:
     restores only the leaves needed to begin (embedding + first stage +
     head) from the block checkpoint, then completes the restore (here
     synchronously; the fetch statistics show how many bytes the fast path
-    needed — the Fig. 20 measurement on a real model).
+    needed — the Fig. 20 measurement on a real model).  One copy of the
+    weights is held on the device: ``like`` may be a ``meta`` tree, and the
+    partial tree's zeros are dropped before the rest is decoded.
 
 The engine runs on ``device`` (the card by default; ``device="cpu"`` runs
 the kernels' plain versions).  ``device="cuda"`` without CUDA raises.
@@ -80,6 +82,7 @@ class ServeEngine:
             )
             t_first = time.monotonic() - t0
             first_bytes = reader.stats.fetched_compressed
+            del partial_params  # its zeros go before finish() decodes the rest
             self.params = finish()
             self.cold_start_stats = {
                 "t_first_leaves_s": t_first,

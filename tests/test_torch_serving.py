@@ -185,10 +185,18 @@ def _mixed_tree():
     }
 
 
+# gemma3_1b's smoke width at 14 layers: the full config's stage layout (two
+# one-layer stages, then the 6-layer period repeated), so ``stages/0`` is one
+# layer; the smoke's 8 layers fold into a single stage.
+GEMMA_LAZY = dict(n_layers=14)
+
+
 @pytest.fixture(scope="module")
 def ckpts(tmp_path_factory):
     jcfg, _ = _cfgs("deepseek_7b", "float32")
+    gcfg, _ = _cfgs("gemma3_1b", "float32", **GEMMA_LAZY)
     trees = {"model": jax.tree.map(np.asarray, jmodel_for(jcfg).init(jax.random.key(0))),
+             "gemma3": jax.tree.map(np.asarray, jmodel_for(gcfg).init(jax.random.key(0))),
              "mixed": _mixed_tree(),
              "whisper": jax.tree.map(np.asarray, jmodel_for(jget_smoke("whisper_medium")).init(
                  jax.random.key(1)))}
@@ -201,7 +209,7 @@ def ckpts(tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("name", ["model", "mixed", "whisper"])
+@pytest.mark.parametrize("name", ["model", "mixed", "whisper", "gemma3"])
 def test_checkpoint_bytes_and_manifest_identical(ckpts, name):
     tree, jdir, tdir = ckpts[name]
     jpaths = [p for p, _ in jckpt._leaf_paths(jax.tree.map(jnp.asarray, tree))]
@@ -215,7 +223,7 @@ def test_checkpoint_bytes_and_manifest_identical(ckpts, name):
             assert tf.read_bytes() == jf.read_bytes()
 
 
-@pytest.mark.parametrize("name", ["model", "mixed", "whisper"])
+@pytest.mark.parametrize("name", ["model", "mixed", "whisper", "gemma3"])
 @pytest.mark.parametrize("writer", ["jax", "torch"])
 def test_checkpoint_restores_across_packages(ckpts, name, writer):
     tree, jdir, tdir = ckpts[name]
@@ -243,6 +251,101 @@ def test_lazy_cold_start_stats_equal_jax(ckpts, writer):
     assert {k: teng.cold_start_stats[k] for k in keys} == {k: jeng.cold_start_stats[k] for k in keys}
     for w, g in zip(jax.tree.leaves(tree), jax.tree.leaves(params_to_numpy(teng.params))):
         np.testing.assert_array_equal(g, w)
+
+
+def _bits(x):
+    return np.asarray(x).view(np.uint8)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_partial_lazy_restore_equals_jax_on_gemma3(ckpts, writer):
+    """gemma3_1b's ``stages/0`` is one layer (``GEMMA_LAZY``), so the first fetch is a real
+    prefix and the other leaves start as zeros: the partial tree, the fetch
+    statistics after it and after ``finish()``, the final params and the
+    engine's ``cold_start_stats`` all equal the JAX package's."""
+    from repro.serving.engine import FIRST_LEAF_PRED as JPRED
+    from repro_torch.models.params import MetaGenerator
+    from repro_torch.serving.engine import FIRST_LEAF_PRED
+
+    tree, jdir, tdir = ckpts["gemma3"]
+    d = str(jdir if writer == "jax" else tdir)
+    jtree = jax.tree.map(jnp.asarray, tree)
+    jpart, jfinish, jreader = jckpt.CheckpointManager(d).restore_lazy(0, jtree, JPRED)
+    tpart, tfinish, treader = tckpt.CheckpointManager(d).restore_lazy(
+        0, params_from_numpy(tree, "cpu"), FIRST_LEAF_PRED, device="cpu")
+    paths = [p for p, _ in jckpt._leaf_paths(jtree)]
+    first = [FIRST_LEAF_PRED(p) for p in paths]
+    assert first == [JPRED(p) for p in paths] and 0 < sum(first) < len(first)
+    assert any(p.startswith("stages/1") for p, f in zip(paths, first) if not f)
+    for f, w, j, g in zip(first, jax.tree.leaves(tree), jax.tree.leaves(jpart),
+                          jax.tree.leaves(params_to_numpy(tpart))):
+        np.testing.assert_array_equal(_bits(g), _bits(j))
+        np.testing.assert_array_equal(_bits(g), _bits(w) if f else np.zeros_like(_bits(w)))
+    assert dataclasses.asdict(treader.stats) == dataclasses.asdict(jreader.stats)
+    assert treader.stats.fetched_raw < jreader.manifest.raw_size
+    jfull, tfull = jfinish(), tfinish()
+    assert dataclasses.asdict(treader.stats) == dataclasses.asdict(jreader.stats)
+    for w, j, g in zip(jax.tree.leaves(tree), jax.tree.leaves(jfull), jax.tree.leaves(params_to_numpy(tfull))):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+        np.testing.assert_array_equal(_bits(j), _bits(w))
+    treader.close()
+    jcfg, tcfg = _cfgs("gemma3_1b", "float32", **GEMMA_LAZY)
+    jeng, teng = JServeEngine(jcfg), ServeEngine(tcfg, device="cpu")
+    jeng.start(jckpt.CheckpointManager(d), 0, jtree, lazy=True)
+    teng.start(tckpt.CheckpointManager(d), 0, model_for(tcfg).init(MetaGenerator()), lazy=True)
+    keys = ("first_fetch_compressed_bytes", "total_fetch_compressed_bytes", "read_amplification")
+    assert {k: teng.cold_start_stats[k] for k in keys} == {k: jeng.cold_start_stats[k] for k in keys}
+    assert teng.cold_start_stats["first_fetch_compressed_bytes"] < teng.cold_start_stats[
+        "total_fetch_compressed_bytes"]
+    for w, g in zip(jax.tree.leaves(tree), jax.tree.leaves(params_to_numpy(teng.params))):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("name", ["model", "gemma3"])
+def test_finish_keeps_the_first_leaves_and_decodes_each_leaf_once(ckpts, name, monkeypatch):
+    """``finish()`` returns the partial tree's own first leaves (same storage)
+    and decodes every other leaf once: one copy of the weights in all."""
+    from repro_torch.models.params import MetaGenerator
+    from repro_torch.serving.engine import FIRST_LEAF_PRED
+
+    tree, _, tdir = ckpts[name]
+    decoded = []
+    load = tckpt.CheckpointManager._load
+    monkeypatch.setattr(tckpt.CheckpointManager, "_load",
+                        staticmethod(lambda r, m, device: decoded.append(m.path) or load(r, m, device)))
+    cfg = _cfgs(*{"model": ("deepseek_7b", "float32"), "gemma3": ("gemma3_1b", "float32")}[name],
+                **(GEMMA_LAZY if name == "gemma3" else {}))[1]
+    like = model_for(cfg).init(MetaGenerator())
+    part, finish, reader = tckpt.CheckpointManager(str(tdir)).restore_lazy(0, like, FIRST_LEAF_PRED,
+                                                                          device="cpu")
+    paths = [p for p, _ in tckpt._leaf_paths(like)]
+    assert decoded == [p for p in paths if FIRST_LEAF_PRED(p)]
+    full = finish()
+    reader.close()
+    assert sorted(decoded) == sorted(paths)  # each leaf once
+    for p, (_, a), (_, b) in zip(paths, tckpt._leaf_paths(part), tckpt._leaf_paths(full)):
+        assert b.device.type == "cpu" and not b.is_meta
+        if FIRST_LEAF_PRED(p):
+            assert b is a and b.data_ptr() == a.data_ptr()
+        else:
+            assert not bool(a.any())
+    for w, g in zip(jax.tree.leaves(tree), jax.tree.leaves(params_to_numpy(full))):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+def test_async_save_snapshots_the_tree(ckpts, tmp_path):
+    """An asynchronous save copies the leaves before it returns: changing the
+    tree while the blocks are written leaves the file the JAX package's."""
+    tree, jdir, _ = ckpts["gemma3"]
+    tparams = params_from_numpy(tree, "cpu")
+    mgr = tckpt.CheckpointManager(str(tmp_path), block_size=4096, async_save=True)
+    mgr.save(0, tparams)
+    for _, leaf in tckpt._leaf_paths(tparams):
+        leaf.add_(1)
+    mgr.wait()
+    for suffix in ("blocks", "json"):
+        (jf,), (tf,) = jdir.glob(f"*.{suffix}"), tmp_path.glob(f"*.{suffix}")
+        assert tf.read_bytes() == jf.read_bytes()
 
 
 @pytest.mark.parametrize("arch", ["whisper_medium"])  # the audio family
