@@ -1699,14 +1699,14 @@ def serve_traffic(cfg, seed: int = 0, prompt_len: int = SERVE_PROMPT, cold_start
     check(all(len(r.out_tokens) == SERVE_NEW for r in done) and len(done) == SERVE_REQUESTS,
           "every request got its tokens")
     check(all(0 <= tok < cfg.vocab_size for r in done for tok in r.out_tokens), "token ids in range")
-    ttft = [r.t_first_token - r.t_submit for r in done]
+    ttft = [r.t_first_token - r.t_arrival for r in done]
     out = dict(
         arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
         compute_dtype=cfg.compute_dtype, attn_impl=cfg.attn_impl,
         requests=SERVE_REQUESTS, prompt_len=prompt_len, new_tokens=SERVE_NEW,
         max_batch=SERVE_BATCH, launches=launches, prefills=n_prefills,
         decode_steps=len(walls["decode"]), cold_path_ttft_s=ready_s + ttft[0], ttft_s=ttft,
-        latency_s=[r.t_done - r.t_submit for r in done],
+        latency_s=[r.t_done - r.t_arrival for r in done],
         serve_wall_s=serve_s, prefill_wall_s=walls["prefill"], decode_wall_s=sum(walls["decode"]),
         decode_step_mean_s=sum(walls["decode"]) / len(walls["decode"]),
         tokens_per_s=SERVE_REQUESTS * SERVE_NEW / serve_s,

@@ -91,8 +91,8 @@ def run(train_dir: str, serve_dir: str, device: str) -> None:
         done += eng.step_batch()
     for r in done[:3]:
         print(f"  req{r.rid}: {len(r.out_tokens)} tokens "
-              f"ttft={(r.t_first_token - r.t_submit)*1e3:.0f}ms "
-              f"total={(r.t_done - r.t_submit)*1e3:.0f}ms")
+              f"ttft={(r.t_first_token - r.t_arrival)*1e3:.0f}ms "
+              f"total={(r.t_done - r.t_arrival)*1e3:.0f}ms")
     print(f"OK: served {len(done)} requests")
 
 

@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch import obs
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
@@ -125,11 +127,14 @@ def build(name: str) -> Path:
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """Library ``name``, built if needed, with its entry points' ``argtypes``."""
-    lib = ctypes.CDLL(str(build(name)))
-    for entry, argtypes in LIBRARIES[name][2].items():
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    with obs.span("kernels.load", library=name) as sp:
+        if obs.on:
+            sp.set(built=not library_path(name).exists())  # whether nvcc runs
+        lib = ctypes.CDLL(str(build(name)))
+        for entry, argtypes in LIBRARIES[name][2].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 

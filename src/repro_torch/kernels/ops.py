@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
+
 from .decode_attention import decode_attention_bhsd
 from .flash_attention import flash_attention_bhtd
 from .ssd_scan import ssd_scan_bhtpn
@@ -21,14 +23,15 @@ def flash_attention(q, k, v, *, q_pos=None, k_pos=None, window=None, scale):
     """(B,H,T,hd) attention; positions must be contiguous from 0."""
     b, h, t, hd = q.shape
     s = k.shape[2]
-    out = flash_attention_bhtd(
-        q.reshape(b * h, t, hd),
-        k.reshape(b * h, s, hd),
-        v.reshape(b * h, s, hd),
-        scale=scale,
-        window=window,
-    )
-    return out.reshape(b, h, t, hd)
+    with obs.span("kernels.flash_attention", bh=b * h, t=t, hd=hd, itemsize=q.element_size()):
+        out = flash_attention_bhtd(
+            q.reshape(b * h, t, hd),
+            k.reshape(b * h, s, hd),
+            v.reshape(b * h, s, hd),
+            scale=scale,
+            window=window,
+        )
+        return out.reshape(b, h, t, hd)
 
 
 def decode_attention(q, k, v, valid, *, scale):

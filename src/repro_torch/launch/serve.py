@@ -70,7 +70,7 @@ def main() -> None:
     print(f"cold start (lazy): first weights {s['t_first_leaves_s']*1e3:.0f} ms, "
           f"full {s['t_full_s']*1e3:.0f} ms, "
           f"amplification {s['read_amplification']:.2f}x")
-    lat = [(r.t_done - r.t_submit) * 1e3 for r in done]
+    lat = [(r.t_done - r.t_arrival) * 1e3 for r in done]
     print(f"served {len(done)} requests; latency mean {np.mean(lat):.0f} ms, "
           f"p99 {np.percentile(lat, 99):.0f} ms")
 

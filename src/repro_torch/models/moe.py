@@ -36,6 +36,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.distributed.api import active_mesh, constrain
 
 from .layers import _gelu, _normal, apply_mlp, init_mlp
@@ -97,15 +98,16 @@ def _capacity(n_tok: int, m, t: int) -> int:
 def _dispatch_combine_plan(xf, router, m, t):
     """Routing + scatter for the tokens in ``xf`` (the one-device branch)."""
     n_tok, d = xf.shape
-    logits = xf.to(_F32) @ router.to(_F32)
     capacity = _capacity(n_tok, m, t)
-    slot, gate, _, aux = route_topk(logits, m.top_k, capacity)
-    e = m.n_experts
-    upd = xf[:, None, :].expand(n_tok, m.top_k, d).reshape(-1, d)
-    # one spare row takes every dropped choice and is cut off: the
-    # reference's scatter with mode="drop"
-    buf = torch.zeros((e * capacity + 1, d), dtype=xf.dtype, device=xf.device)
-    buf.index_add_(0, slot.reshape(-1).long(), upd)
+    with obs.span("moe.route", tokens=n_tok, capacity=capacity):
+        logits = xf.to(_F32) @ router.to(_F32)
+        slot, gate, _, aux = route_topk(logits, m.top_k, capacity)
+        e = m.n_experts
+        upd = xf[:, None, :].expand(n_tok, m.top_k, d).reshape(-1, d)
+        # one spare row takes every dropped choice and is cut off: the
+        # reference's scatter with mode="drop"
+        buf = torch.zeros((e * capacity + 1, d), dtype=xf.dtype, device=xf.device)
+        buf.index_add_(0, slot.reshape(-1).long(), upd)
     return buf[:-1].reshape(e, capacity, d), slot, gate, aux, capacity
 
 
@@ -121,20 +123,21 @@ def _shard_dispatch_plan(xf, router, m, t, dp: int):
     slots (dp, n/dp, k) into E·C; the mean aux loss; and C."""
     n_tok, d = xf.shape
     n, e, k = n_tok // dp, m.n_experts, m.top_k
-    logits = (xf.to(_F32) @ router.to(_F32)).reshape(dp, n, e)
     capacity = _capacity(n, m, t)
-    slot, gate, _, aux = route_topk(logits, k, capacity)
-    keep = slot < e * capacity
-    # shard p's slot e·C + c is column p·C + c of expert e: row
-    # e·dp·C + p·C + c of the flattened buffer
-    shard = torch.arange(dp, device=xf.device).view(dp, 1, 1) * capacity
-    slot = slot.long()
-    eid, col = slot // capacity, shard + slot % capacity
-    row = torch.where(keep, eid * (dp * capacity) + col, e * dp * capacity)
-    upd = xf[:, None, :].expand(n_tok, k, d).reshape(-1, d)
-    buf = torch.zeros((e * dp * capacity + 1, d), dtype=xf.dtype, device=xf.device)
-    buf.index_add_(0, row.reshape(-1), upd)
-    read = torch.where(keep, row, (e - 1) * dp * capacity + shard + capacity - 1)
+    with obs.span("moe.route", tokens=n_tok, capacity=capacity, shards=dp):
+        logits = (xf.to(_F32) @ router.to(_F32)).reshape(dp, n, e)
+        slot, gate, _, aux = route_topk(logits, k, capacity)
+        keep = slot < e * capacity
+        # shard p's slot e·C + c is column p·C + c of expert e: row
+        # e·dp·C + p·C + c of the flattened buffer
+        shard = torch.arange(dp, device=xf.device).view(dp, 1, 1) * capacity
+        slot = slot.long()
+        eid, col = slot // capacity, shard + slot % capacity
+        row = torch.where(keep, eid * (dp * capacity) + col, e * dp * capacity)
+        upd = xf[:, None, :].expand(n_tok, k, d).reshape(-1, d)
+        buf = torch.zeros((e * dp * capacity + 1, d), dtype=xf.dtype, device=xf.device)
+        buf.index_add_(0, row.reshape(-1), upd)
+        read = torch.where(keep, row, (e - 1) * dp * capacity + shard + capacity - 1)
     return (buf[:-1].reshape(e, dp * capacity, d), read.reshape(n_tok, k),
             keep.reshape(n_tok, k), gate.reshape(n_tok, k), slot.to(torch.int32),
             aux.mean(), capacity)
@@ -174,6 +177,10 @@ def apply_moe(p: PyTree, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tens
         buf, slot, gate, aux, cap = _dispatch_combine_plan(xf, p["router"], m, t)
         n_rows = m.n_experts * cap
         read, keep = torch.clamp(slot, max=n_rows - 1).long(), slot < n_rows
+    if obs.on and t > 1:  # prefill and training: the capacity drops choices
+        obs.count("moe.prefill_choices", n_tok * m.top_k)
+        obs.count("moe.prefill_slots", buf.shape[0] * buf.shape[1])
+        obs.count_device("moe.prefill_kept", keep)
 
     xe = constrain(buf, ("model", "data", None))  # EP: experts↔model
     g = torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(dt))

@@ -13,6 +13,12 @@ A minimal-but-real batching server, as in the JAX package:
     weights is held on the device: ``like`` may be a ``meta`` tree, and the
     partial tree's zeros are dropped before the rest is decoded.
 
+With the tracer on (:mod:`repro_torch.obs`), each batch records an
+``engine.batch`` span, an ``engine.queue`` span per request from its arrival
+(``submit(arrival=)``), ``engine.prefill`` and each step's
+``engine.decode_step`` around its ``model.decode_step``, and the
+``engine.prompt_tokens`` / ``engine.prefill_tokens`` counters.
+
 The engine runs on ``device`` (the card by default; ``device="cpu"`` runs
 the kernels' plain versions).  ``device="cuda"`` without CUDA raises.
 """
@@ -26,6 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.models import model_for
 
@@ -38,7 +45,7 @@ class Request:
     prompt: np.ndarray  # (T,) int32
     max_new_tokens: int = 8
     out_tokens: list[int] = field(default_factory=list)
-    t_submit: float = 0.0
+    t_arrival: float = 0.0  # time.monotonic() when the request reached the system
     t_first_token: float = 0.0
     t_done: float = 0.0
 
@@ -100,47 +107,67 @@ class ServeEngine:
         self.params = params
 
     # ------------------------------------------------------------------
-    def submit(self, prompt: np.ndarray, max_new_tokens: int = 8) -> int:
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 8,
+               arrival: Optional[float] = None) -> int:
+        """Queue a request; ``arrival`` is when it reached the system
+        (``time.monotonic()`` seconds, now by default), as a front end stamps
+        it at its edge."""
         self._rid += 1
         self.queue.append(
             Request(self._rid, np.asarray(prompt, np.int32), max_new_tokens,
-                    t_submit=time.monotonic())
+                    t_arrival=time.monotonic() if arrival is None else arrival)
         )
         return self._rid
 
     def step_batch(self) -> list[Request]:
         """Serve one batch from the queue to completion. Returns finished."""
         assert self.params is not None, "engine not started"
-        batch_reqs = [self.queue.popleft()
-                      for _ in range(min(self.max_batch, len(self.queue)))]
-        if not batch_reqs:
+        if not self.queue:
             return []
-        t = max(len(r.prompt) for r in batch_reqs)
-        b = len(batch_reqs)
-        toks = np.zeros((b, t), np.int32)
-        for i, r in enumerate(batch_reqs):
-            toks[i, t - len(r.prompt):] = r.prompt  # left-pad
-        budget = max(r.max_new_tokens for r in batch_reqs)
-        cache_len = t + budget
-        logits, cache = self.model.prefill(
-            self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
-            cache_len=cache_len,
-        )
-        last = logits[:, -1].argmax(dim=-1)
-        first = last.tolist()  # waits for the device: the first token exists now
-        now = time.monotonic()
-        for i, r in enumerate(batch_reqs):
-            r.out_tokens.append(first[i])
-            r.t_first_token = now
-        for k in range(1, budget):
-            batch_in = {"tokens": last[:, None].to(torch.int32), "pos": t + k - 1}
-            logits, cache = self.model.decode_step(self.params, batch_in, cache)
-            last = logits[:, -1].argmax(dim=-1)
-            step = last.tolist()
+        with obs.span("engine.batch") as batch_span:
+            batch_reqs = [self.queue.popleft()
+                          for _ in range(min(self.max_batch, len(self.queue)))]
+            if obs.on:
+                now_ns = time.monotonic_ns()
+                for r in batch_reqs:
+                    obs.record("engine.queue", round(r.t_arrival * 1e9), now_ns, rid=r.rid,
+                               prompt_len=len(r.prompt))
+            t = max(len(r.prompt) for r in batch_reqs)
+            b = len(batch_reqs)
+            toks = np.zeros((b, t), np.int32)
             for i, r in enumerate(batch_reqs):
-                if len(r.out_tokens) < r.max_new_tokens:
-                    r.out_tokens.append(step[i])
-        for r in batch_reqs:
-            r.t_done = time.monotonic()
+                toks[i, t - len(r.prompt):] = r.prompt  # left-pad
+            budget = max(r.max_new_tokens for r in batch_reqs)
+            if obs.on:
+                batch_span.set(rids=[r.rid for r in batch_reqs], rows=b, padded_t=t,
+                               budget=budget)
+                obs.count("engine.prompt_tokens", sum(len(r.prompt) for r in batch_reqs))
+                obs.count("engine.prefill_tokens", b * t)
+            cache_len = t + budget
+            with obs.span("engine.prefill", rows=b, padded_t=t):
+                logits, cache = self.model.prefill(
+                    self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
+                    cache_len=cache_len,
+                )
+                last = logits[:, -1].argmax(dim=-1)
+                first = last.tolist()  # waits for the device: the first token exists now
+            now = time.monotonic()
+            for i, r in enumerate(batch_reqs):
+                r.out_tokens.append(first[i])
+                r.t_first_token = now
+            for k in range(1, budget):
+                batch_in = {"tokens": last[:, None].to(torch.int32), "pos": t + k - 1}
+                # the step from its model call to its tokens on the host; the
+                # child is the host issuing the forward
+                with obs.span("engine.decode_step", k=k):
+                    with obs.span("model.decode_step"):
+                        logits, cache = self.model.decode_step(self.params, batch_in, cache)
+                    last = logits[:, -1].argmax(dim=-1)
+                    step = last.tolist()
+                for i, r in enumerate(batch_reqs):
+                    if len(r.out_tokens) < r.max_new_tokens:
+                        r.out_tokens.append(step[i])
+            for r in batch_reqs:
+                r.t_done = time.monotonic()
         self.done += batch_reqs
         return batch_reqs
