@@ -15,8 +15,11 @@ T < 128, its bf16 tensor-core instance also against
 every head dim on prefix, ring and scattered masks, its bf16 tiled
 instance also against ``decode_attention_tiled_ref``, and with NaN in every
 fully masked tile, which it must never read; K5 at every (P, N) it takes,
-a chunk under 64 rows included, also against ``ssd_scan_tiled_ref``), and
-drives the port's two paths:
+a chunk under 64 rows included, also against ``ssd_scan_tiled_ref``; the
+MoE router's expert-position kernel bit for bit against the one-hot cumsum
+at granite_moe_1b's and deepseek_moe_16b's full batch, the mesh's 16
+routings, decode, an all-same-expert skew and one token), and drives the
+port's two paths:
 
 * provisioning: ``repro_torch.sim.run_scale`` with the ``vector_torch``
   engine on ``cuda`` at the paper tier (1,000 VMs, 5 x 500 containers) and
@@ -46,7 +49,9 @@ drives the port's two paths:
     the first prefill, held against the model's ``ssd_chunked``; in float32
     the decode caches must reproduce a prefill of the generated text;
   - ``granite_moe_1b`` (24 layers, 32 experts top-8, GQA at hd 64) with
-    ``attn_impl="pallas"``, checked as deepseek_7b is;
+    ``attn_impl="pallas"``, checked as deepseek_7b is, with the router's
+    expert-position kernel launched once a layer of every prefill and
+    decode step;
   - ``whisper_medium`` (24 encoder + 24 decoder layers, d 1024, 16 heads
     x 64, encoder ctx 1500) with ``attn_impl="pallas"``, through the model
     facade (``ServeEngine`` feeds no frames, in either package): 8 requests
@@ -64,9 +69,10 @@ drives the port's two paths:
     against ``chunked``;
   - and the block-checkpoint cold start (save, lazy restore, serve) on
     deepseek_7b's smoke config, card against CPU.
-* training (phase ``train``; the training path launches no kernel, as the
-  reference trains through ``full``/``chunked`` attention and its Pallas
-  kernels have no backward):
+* training (phase ``train``; the training path launches no attention or SSD
+  kernel, as the reference trains through ``full``/``chunked`` attention and
+  its Pallas kernels have no backward; the MoE router's forward launches its
+  expert-position kernel, whose slots carry no gradient):
   - one float32 train step of seven smoke configs (whisper_medium's
     included) on the card against the port's CPU path, from the same
     seeded params and batch;
@@ -231,6 +237,19 @@ K5_TILED = (1e-3, 1e-2)
 K5_PAIRS_SHAPES = [(256, 2, 128), (96, 2, 48)]
 
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_BATCH = 8, 512, 16, 4
+# The router's expert positions, (L, n, E, k, capacity, skew): granite_moe_1b's
+# full batch (4 rows x 3,968 tokens) at its prefill capacity, deepseek_moe_16b's
+# (E, k) at the same tokens, the (16, 16) mesh's 16 shards of it, a decode
+# step (capacity n), every token choosing the same experts, one token
+MOE_ROUTE_TOKENS = 15_872
+MOE_ROUTE_CASES = {
+    "granite_moe_1b": (1, MOE_ROUTE_TOKENS, 32, 8, 4_960, False),
+    "deepseek_moe_16b": (1, MOE_ROUTE_TOKENS, 64, 6, 1_860, False),
+    "mesh_16_shards": (16, MOE_ROUTE_TOKENS // 16, 32, 8, 310, False),
+    "decode": (1, 4, 32, 8, 4, False),
+    "skew": (1, MOE_ROUTE_TOKENS, 32, 8, 4_960, True),
+    "one_token": (1, 1, 32, 8, 1, False),
+}
 # gemma3_1b is served with 1,024-token prompts: its 22 local layers' 512-token
 # window bites (at 512 tokens it would not).
 GEMMA_PROMPT = 1024
@@ -753,6 +772,7 @@ def phase_kernels_vs_plain() -> float:
     import torch
 
     from repro_torch.kernels import cap_chain as cc
+    from repro_torch.kernels import moe_route
 
     worst = 0.0
     for n in (1, 255, 257, 901, 100_000):
@@ -780,9 +800,30 @@ def phase_kernels_vs_plain() -> float:
         got = cc.nic_flow_counts(nodes, 1000)
         check(torch.equal(got, cc.nic_flow_counts_torch(nodes, 1000)), f"K2 vs plain, {name}")
         check(torch.equal(got, torch.bincount(nodes, minlength=1000)), f"K2 vs bincount, {name}")
+    moe_dropped = {}
+    for name, (l, n, e, k, cap, skew) in MOE_ROUTE_CASES.items():
+        ids = moe_route_ids(l, n, e, k, skew)
+        got = moe_route.expert_slots(ids, e, cap)
+        torch.cuda.synchronize()
+        want = moe_route.expert_slots_torch(ids, e, cap)
+        check(torch.equal(got, want), f"expert slots vs plain, {name}: "
+              f"{int((got != want).sum())} of {got.numel()} differ")
+        moe_dropped[name] = int((got == e * cap).sum())
     emit("kernels_vs_plain", k1_widths=[1, 255, 257, 901, 100_000], k1_bit_identical=True,
-         k1_max_abs_err=worst, k2_exact=True, k2_cases=sorted(k2_cases))
+         k1_max_abs_err=worst, k2_exact=True, k2_cases=sorted(k2_cases),
+         moe_route_exact=True, moe_route_cases=MOE_ROUTE_CASES, moe_route_dropped=moe_dropped)
     return worst
+
+
+def moe_route_ids(l: int, n: int, e: int, k: int, skew: bool):
+    """(L, n, k) int32 expert ids on the card, k distinct a token, as top-k
+    gives them; with ``skew`` every token's are 0..k-1."""
+    import torch
+
+    if skew:
+        return torch.arange(k, dtype=torch.int32, device="cuda").expand(l, n, k).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(n + e)
+    return torch.rand((l, n, e), generator=gen, device="cuda").topk(k, dim=-1).indices.to(torch.int32)
 
 
 def k2_plan_stats(src: np.ndarray) -> dict:
@@ -1459,14 +1500,24 @@ def serve_prompts(cfg, n: int, length: int, seed: int) -> list:
     return [rng.integers(0, cfg.vocab_size, size=length) for _ in range(n)]
 
 
+def check_train_launches(launches: dict, where: str, moe: bool) -> None:
+    """No attention or SSD kernel on a training or dry-run path (their Pallas
+    kernels have no backward); the router's expert positions launch in every
+    forward of a model with MoE layers, and only there."""
+    others = {k: v for k, v in launches.items() if k != "expert_slots" and v}
+    check(not others, f"a kernel launched on {where}: {launches}")
+    check((launches["expert_slots"] > 0) == moe, f"expert-slot launches on {where}: {launches}")
+
+
 def launch_counts() -> dict:
-    from repro_torch.kernels import cap_chain, decode_attention, flash_attention, ssd_scan
+    from repro_torch.kernels import cap_chain, decode_attention, flash_attention, moe_route, ssd_scan
 
     return {"cap_chain_rates": cap_chain.cap_chain_rates.launches,
             "nic_flow_counts": cap_chain.nic_flow_counts.launches,
             "flash_attention_bhtd": flash_attention.flash_attention_bhtd.launches,
             "decode_attention_bhsd": decode_attention.decode_attention_bhsd.launches,
-            "ssd_scan_bhtpn": ssd_scan.ssd_scan_bhtpn.launches}
+            "ssd_scan_bhtpn": ssd_scan.ssd_scan_bhtpn.launches,
+            "expert_slots": moe_route.expert_slots.launches}
 
 
 def host_rss_bytes() -> int:
@@ -1966,6 +2017,12 @@ def phase_serve_granite_moe_1b() -> dict:
     k3 = out["launches"]["flash_attention_bhtd"]
     check(k3 == cfg.n_layers * out["prefills"], f"K3 launches {k3} vs {cfg.n_layers} x {out['prefills']}")
     out["k3_launches"] = k3
+    # every layer is a MoE layer: one expert-position launch a layer of each
+    # prefill and decode step
+    slots = out["launches"]["expert_slots"]
+    steps = out["prefills"] + out["decode_steps"]
+    check(slots == cfg.n_layers * steps, f"expert-slot launches {slots} vs {cfg.n_layers} x {steps}")
+    out["moe_route_launches"] = slots
     out["moe_drops"] = {"capacity_factor": cfg.moe.capacity_factor, "prefill_layers": drops["calls"],
                         "choices": drops["choices"], "dropped": int(drops["dropped"]),
                         "dropped_share": int(drops["dropped"]) / max(drops["choices"], 1)}
@@ -2016,8 +2073,8 @@ def device_summary(prof, wall_s: float, top: int) -> dict:
             n_scans += "scan" in e.name.lower()
     busy = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    # every device kernel with "scan" in its name: in granite_moe_1b's phases
-    # these are the router's cumsums; elsewhere other cumsums and K5 count too
+    # every device kernel with "scan" in its name: any cumsum, and K5's passes
+    # (the router's positions are no scan: its kernel counts and ranks)
     scan_ms = sum(ms for name, ms in by_name.items() if "scan" in name.lower())
     return dict(wall_ms=wall_s * 1e3, device_busy_ms=busy, idle_share=1 - busy / (wall_s * 1e3),
                 kernels=n, top_ms=[[name[:80], ms] for name, ms in ranked],
@@ -2423,7 +2480,7 @@ def train_full_width() -> dict:
     peak_block = torch.cuda.max_memory_allocated()
     losses = [res.losses[s] for s in range(1, TRAIN_FULL["steps"] + 1)]
     check(all(np.isfinite(losses)), f"granite losses {losses}")
-    check(not any(launches.values()), f"a kernel launched on the training path: {launches}")
+    check_train_launches(launches, "the training path", moe=True)
 
     # n_micro 1 against 2 from one state and batch; then the n_micro=2 run
     # goes on over the same batch, whose loss must fall, and one more step
@@ -2699,7 +2756,7 @@ def mesh_train(mesh, mapping) -> dict:
         peak = torch.cuda.max_memory_allocated()
         prof = profile_train_step(step, params, opt_state, batch)
     check(all(np.isfinite(losses)), f"granite losses under the mesh {losses}")
-    check(not any(launches.values()), f"a kernel launched on the mesh training path: {launches}")
+    check_train_launches(launches, "the mesh training path", moe=True)
     del params, opt_state, step, m
     gc.collect()
     torch.cuda.empty_cache()
@@ -3046,7 +3103,7 @@ def measured_cell(arch: str, shape_args, n_micro, params_cache: dict) -> dict:
     check(arg_bytes == pred["memory"]["argument_size_in_bytes"],
           f"{arch} {shape.name}: arguments {arg_bytes} bytes, the dry run "
           f"{pred['memory']['argument_size_in_bytes']}")
-    check(not any(launches.values()), f"a kernel launched on the dry-run cells: {launches}")
+    check_train_launches(launches, f"{arch} {shape.name}", moe=cfg.moe is not None)
     roof = pred["roofline"]
     measured_s = float(np.median(device_ms)) / 1e3
     basis = pred["model_flops_basis"]
@@ -3402,6 +3459,33 @@ def time_k5(dtype: str = "bfloat16") -> dict:
     return out
 
 
+def time_moe_route() -> dict:
+    """The router's expert positions at granite_moe_1b's full batch: the
+    kernel's two bare launches, the wrapper, and the plain one-hot cumsum."""
+    import torch
+
+    from repro_torch.kernels import _build, moe_route
+
+    l, n, e, k, cap, _ = MOE_ROUTE_CASES["granite_moe_1b"]
+    ids = moe_route_ids(l, n, e, k, skew=False)
+    slot = torch.empty_like(ids)
+    lib = _build.library("moe_route")
+    counts = torch.empty(l * -(-n * k // lib.repro_expert_slots_tile()) * e, dtype=torch.int32,
+                         device="cuda")
+
+    def launch():
+        rc = lib.repro_expert_slots(ids.data_ptr(), slot.data_ptr(), counts.data_ptr(), l, n * k,
+                                    e, cap, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"expert-slot launch returned {rc}")
+
+    out = dict(l=l, n=n, e=e, k=k, capacity=cap, ms=graph_ms(launch),
+               wrapper_ms=event_ms(lambda: moe_route.expert_slots(ids, e, cap)),
+               plain_ms=event_ms(lambda: moe_route.expert_slots_torch(ids, e, cap), iters=20))
+    # the ids in and the slots out, int32 each
+    out["bound_ms"], out["bound_by"] = bound_ms(8 * l * n * k, 0, BF16_OPS_PER_S)
+    return out
+
+
 def pass_times(launch, reps: int = 10) -> dict:
     """Device ms a call of each of K5's three passes, from a ``torch.profiler``
     trace of ``reps`` calls of ``launch``."""
@@ -3438,6 +3522,7 @@ def phase_timings(giga: dict) -> dict:
         "k4_other": [time_k4(bh, hd, sweep=True) for bh, hd in K4_OTHER],
         "k5": time_k5(),
         "k5_f32": time_k5("float32"),
+        "moe_route": time_moe_route(),
     }
     emit("timings", **out)
     return out
@@ -3563,6 +3648,13 @@ def main() -> int:
          "served_max_rel_err": mamba["k5_path"]["max_rel_err_vs_model"],
          "worst_vs_tiled": k5_check["worst_vs_tiled"], "f32": times["k5_f32"],
          "instances": build["k5"]},
+        {"name": "expert_slots", "route": "cuda", "source": csrc + "moe_route.cu",
+         "replaces": None, "launches": granite["moe_route_launches"], "max_abs_err": 0.0,
+         "ms": times["moe_route"]["ms"], "plain_ms": times["moe_route"]["plain_ms"],
+         "bound_ms": times["moe_route"]["bound_ms"], "bound_by": times["moe_route"]["bound_by"],
+         "library_ms": None, "on_main_path": True,
+         "shape": [times["moe_route"][x] for x in ("l", "n", "k", "e", "capacity")],
+         "dtype": "int32", "wrapper_ms": times["moe_route"]["wrapper_ms"]},
     ]
     # The engine keeps its per-NIC counts incrementally and never calls K2,
     # as in the JAX package; no model calls K4 or K5 (ops.py), which run on

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version."""
-from . import cap_chain, decode_attention, flash_attention, ssd_scan
+from . import cap_chain, decode_attention, flash_attention, moe_route, ssd_scan
 from .cap_chain import (
     cap_chain_rates,
     cap_chain_rates_torch,
@@ -8,6 +8,7 @@ from .cap_chain import (
 )
 from .decode_attention import decode_attention_bhsd, decode_attention_torch
 from .flash_attention import flash_attention_bhtd, flash_attention_torch
+from .moe_route import expert_slots, expert_slots_torch
 from .ssd_scan import ssd_scan_bhtpn, ssd_scan_torch
 
 
@@ -16,6 +17,7 @@ def reset_launches() -> None:
     cap_chain.reset_launches()
     flash_attention.reset_launches()
     decode_attention.reset_launches()
+    moe_route.reset_launches()
     ssd_scan.reset_launches()
 
 
@@ -24,6 +26,8 @@ __all__ = [
     "cap_chain_rates_torch",
     "decode_attention_bhsd",
     "decode_attention_torch",
+    "expert_slots",
+    "expert_slots_torch",
     "flash_attention_bhtd",
     "flash_attention_torch",
     "nic_flow_counts",

@@ -69,6 +69,11 @@ LIBRARIES = {
         # x, dt, a, b, c, y, ws, bh, t, p, n, q, dtype, stream
         "repro_ssd_scan": [_P] * 7 + [_I64] * 5 + [_I32, _P],
     }),
+    "moe_route": ("moe_route.cu", FLASH_NVCC_FLAGS, {
+        # eids, slot, counts, routings, choices a routing, experts, capacity, stream
+        "repro_expert_slots": [_P] * 3 + [_I64] * 2 + [_I32] * 2 + [_P],
+        "repro_expert_slots_tile": [],
+    }),
 }
 
 

@@ -4,10 +4,11 @@ As in the JAX package, dispatch and combine are index scatter/gather (not a
 one-hot einsum, whose (T, E, C) tensor is O(T²·k)):
 
   * top-k routing picks (expert, gate) per token-choice;
-  * position-within-expert comes from a cumsum over the flattened choice
-    list in token-major order; choices past the expert capacity map to the
-    out-of-range row E·C and are dropped (their residual path passes
-    through);
+  * position-within-expert is the count of earlier choices of the same
+    expert in the flattened token-major choice list (``kernels/moe_route.py``:
+    a counting-scan kernel on the card, the one-hot cumsum on the CPU);
+    choices past the expert capacity map to the out-of-range row E·C and are
+    dropped (their residual path passes through);
   * tokens are scatter-added into an (E·C, d) expert buffer;
   * the expert FFN is a batched einsum over (E, C, d);
   * combine gathers each choice's output row and weights it by the gate.
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.distributed.api import active_mesh, constrain
+from repro_torch.kernels.moe_route import expert_slots
 
 from .layers import _gelu, _normal, apply_mlp, init_mlp
 
@@ -68,25 +70,21 @@ def route_topk(
     """Returns (slot (...,T,k) int32 into E*C [E*C = dropped], gate (...,T,k)
     f32, eids (...,T,k) int32, aux_loss (...)).  Leading dims are independent
     routings (one per data shard), each over its own T tokens."""
-    *lead, t, e = logits.shape
+    t, e = logits.shape[-2:]
     probs = torch.softmax(logits.to(_F32), dim=-1)
     # sorted, as lax.top_k returns them: the choice order decides the drops
-    gate_vals, eids = torch.topk(probs, k, dim=-1, largest=True, sorted=True)
+    gate_vals, top = torch.topk(probs, k, dim=-1, largest=True, sorted=True)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
+    eids = top.to(torch.int32)
     # position of each (token, choice) within its expert, in token order
-    onehot = F.one_hot(eids, e)  # (...,T,k,E) int64
-    flat = onehot.reshape(*lead, t * k, e)
-    pos_in_expert = (torch.cumsum(flat, dim=-2) - flat).reshape(*lead, t, k, e)
-    pos = (pos_in_expert * onehot).sum(-1)  # (...,T,k)
-    keep = pos < capacity
-    slot = torch.where(keep, eids * capacity + pos, torch.full_like(pos, e * capacity))
+    slot = expert_slots(eids.reshape(-1, t, k), e, capacity).reshape(eids.shape)
 
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     me = probs.mean(dim=-2)
-    ce = F.one_hot(eids[..., 0], e).to(_F32).mean(dim=-2)
+    ce = F.one_hot(top[..., 0], e).to(_F32).mean(dim=-2)
     aux = e * torch.sum(me * ce, dim=-1)
-    return slot.to(torch.int32), gate_vals, eids.to(torch.int32), aux
+    return slot, gate_vals, eids, aux
 
 
 def _capacity(n_tok: int, m, t: int) -> int:

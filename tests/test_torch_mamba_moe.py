@@ -106,10 +106,33 @@ def test_ssd_step_matches_jax():
 # ----------------------------------------------------------------------
 # MoE pieces
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("t,e,k,capacity", [(40, 8, 2, 4), (40, 8, 2, 40), (17, 4, 3, 6)],
-                         ids=["drops", "no_drops", "odd"])
-def test_route_topk_matches_jax(t, e, k, capacity):
+# (T, E, k, capacity, skew): every config's (E, k), heavy drops and none
+# (capacity T, as decode routes), T not a multiple of 32, every token
+# preferring the same k experts, and one token
+ROUTE_CASES = {
+    "drops": (40, 8, 2, 4, False),
+    "no_drops": (40, 8, 2, 40, False),
+    "odd": (17, 4, 3, 6, False),
+    "granite_moe_1b_drops": (300, 32, 8, 30, False),
+    "granite_moe_1b_decode": (4, 32, 8, 4, False),
+    "deepseek_moe_16b_drops": (200, 64, 6, 9, False),
+    "deepseek_moe_16b_no_drops": (200, 64, 6, 200, False),
+    "jamba_v01_52b_drops": (97, 16, 2, 6, False),
+    "jamba_v01_52b_no_drops": (97, 16, 2, 97, False),
+    "smoke_8_4_drops": (33, 8, 4, 8, False),
+    "smoke_8_2_drops": (45, 8, 2, 5, False),
+    "smoke_4_2_drops": (31, 4, 2, 3, False),
+    "skew_drops": (100, 32, 8, 20, True),
+    "skew_no_drops": (64, 32, 8, 64, True),
+    "one_token": (1, 32, 8, 1, False),
+}
+
+
+@pytest.mark.parametrize("t,e,k,capacity,skew", list(ROUTE_CASES.values()), ids=list(ROUTE_CASES))
+def test_route_topk_matches_jax(t, e, k, capacity, skew):
     logits = _draw(np.random.default_rng(t + e), t, e) * 2
+    if skew:
+        logits[:, :k] += 20 + np.arange(k, 0, -1, dtype=np.float32)
     jslot, jgate, jeids, jaux = jmoe.route_topk(jnp.asarray(logits), k, capacity)
     tslot, tgate, teids, taux = tmoe.route_topk(torch.from_numpy(logits), k, capacity)
     assert tslot.dtype == torch.int32 and teids.dtype == torch.int32
