@@ -18,6 +18,7 @@ families: layer ``i`` gets
 from __future__ import annotations
 
 import importlib
+from collections.abc import Mapping
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
@@ -46,6 +47,9 @@ class SSMConfig:
     # precision of the intra-chunk SSD tensors (decay matrix, dtx, partial
     # products); the inter-chunk state recurrence is always f32
     intra_dtype: str = "f32"  # f32 | bf16
+    # a bias after each depthwise conv (x, B and C), in prefill and decode;
+    # the decode conv state keeps the raw projections
+    conv_bias: bool = False
 
 
 @dataclass(frozen=True)
@@ -99,10 +103,22 @@ class ModelConfig:
     remat: str = "block"  # none | block
     z_loss: float = 0.0
     kv_cache_dtype: str = "bf16"  # bf16 | int8 (quantized decode cache)
+    # Granite's scalars; the defaults launch nothing
+    embedding_multiplier: float = 1.0  # embeddings x this
+    attention_multiplier: Optional[float] = None  # score scale; None => hd**-0.5
+    residual_multiplier: float = 1.0  # each residual branch x this before its add
+    logits_scaling: float = 1.0  # logits / this
     # decode GQA: "repeat" materializes H heads from the cache (baseline);
     # "grouped" keeps the Hkv axis so a sequence-sharded cache never
     # reshards (§Perf hillclimb B)
     gqa_decode: str = "repeat"
+
+    def __post_init__(self):
+        # ``moe`` and ``ssm`` may come as mappings (a configuration file's)
+        for name, kind in (("moe", MoEConfig), ("ssm", SSMConfig)):
+            value = getattr(self, name)
+            if isinstance(value, Mapping):
+                object.__setattr__(self, name, kind(**value))
 
     @property
     def hd(self) -> int:
@@ -151,6 +167,8 @@ class ModelConfig:
                 n += 2 * d * hp + 2 * d * s.n_groups * s.d_state + d * s.n_heads
                 n += s.conv_width * (hp + 2 * s.n_groups * s.d_state)
                 n += hp * d + hp + 3 * s.n_heads
+                if s.conv_bias:
+                    n += hp + 2 * s.n_groups * s.d_state
             if spec.ffn == "mlp":
                 n += d  # norm2
                 mult = 3 if self.act in ("swiglu", "geglu") else 2

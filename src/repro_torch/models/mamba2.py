@@ -9,6 +9,10 @@ runs ``ssd_chunked``.
 
 Shapes: x (B,T,H,P) heads×headdim, dt (B,T,H), A (H,) [negative],
 B/C (B,T,G,N) with G groups broadcast over H heads, state (B,H,P,N).
+
+With the tracer on (:mod:`repro_torch.obs`), each ``ssd_chunked`` call of a
+model records a ``mamba.ssd`` span (:func:`ssd_span`) and each decode
+recurrence a ``mamba.step`` span.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import obs
 
 from .layers import _normal, _ones, _zeros, apply_norm, init_norm
 
@@ -29,7 +35,7 @@ def init_mamba(gen: torch.Generator, cfg, lead: tuple = ()) -> PyTree:
     d = cfg.d_model
     h, p, g, n = s.n_heads, s.head_dim, s.n_groups, s.d_state
     a_log = torch.log(torch.linspace(1.0, 16.0, h, dtype=_F32, device=gen.device))
-    return {
+    params = {
         "w_x": _normal(gen, (*lead, d, h * p), d**-0.5),
         "w_z": _normal(gen, (*lead, d, h * p), d**-0.5),
         "w_B": _normal(gen, (*lead, d, g * n), d**-0.5),
@@ -44,24 +50,41 @@ def init_mamba(gen: torch.Generator, cfg, lead: tuple = ()) -> PyTree:
         "out_norm": init_norm("rmsnorm", h * p, gen, lead),
         "w_out": _normal(gen, (*lead, h * p, d), (h * p) ** -0.5),
     }
+    if s.conv_bias:
+        for name, width in (("x", h * p), ("B", g * n), ("C", g * n)):
+            params[f"conv_{name}_bias"] = _zeros(gen, (*lead, width))
+    return params
 
 
-def causal_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv: x (B,T,Ch), kernel (W,Ch)."""
+def causal_conv(x: torch.Tensor, kernel: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv: x (B,T,Ch), kernel (W,Ch), bias (Ch,) or None."""
     w = kernel.shape[0]
     t = x.shape[1]
     pad = F.pad(x, (0, 0, w - 1, 0))
     out = torch.zeros_like(x)
     for i in range(w):  # W is 4: the reference's unrolled taps, in its order
         out = out + pad[:, i : i + t, :] * kernel[i].to(x.dtype)
-    return out
+    return out if bias is None else out + bias.to(x.dtype)
 
 
-def conv_step(x_new: torch.Tensor, conv_state: torch.Tensor, kernel: torch.Tensor):
-    """One decode step. x_new (B,Ch); conv_state (B,W-1,Ch) holds history."""
+def conv_step(x_new: torch.Tensor, conv_state: torch.Tensor, kernel: torch.Tensor,
+              bias: Optional[torch.Tensor] = None):
+    """One decode step. x_new (B,Ch); conv_state (B,W-1,Ch) holds history
+    (the raw inputs, never the biased outputs)."""
     window = torch.cat([conv_state, x_new[:, None, :]], dim=1)  # (B,W,Ch), promoted
     y = torch.einsum("bwc,wc->bc", window.to(x_new.dtype), kernel.to(x_new.dtype))
+    if bias is not None:
+        y = y + bias.to(x_new.dtype)
     return y, window[:, 1:, :]
+
+
+def ssd_span(rows: int, t: int, s, chunk: int, *, keeps: str):
+    """The ``mamba.ssd`` span of one ``ssd_chunked`` call over ``rows`` x
+    ``t`` steps of SSM config ``s`` at ``chunk``; ``keeps`` is ``output`` or
+    ``state``, the part of the result the caller uses."""
+    return obs.span("mamba.ssd", rows=rows, t=t, heads=s.n_heads, head_dim=s.head_dim,
+                    d_state=s.d_state, chunk=chunk, keeps=keeps)
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -190,36 +213,38 @@ def apply_mamba(
     A = -torch.exp(p["A_log"])  # (H,)
 
     if cache is None:
-        xs = F.silu(causal_conv(xs, p["conv_x"]))
-        Bp = F.silu(causal_conv(Bp, p["conv_B"]))
-        Cp = F.silu(causal_conv(Cp, p["conv_C"]))
+        xs = F.silu(causal_conv(xs, p["conv_x"], p.get("conv_x_bias")))
+        Bp = F.silu(causal_conv(Bp, p["conv_B"], p.get("conv_B_bias")))
+        Cp = F.silu(causal_conv(Cp, p["conv_C"], p.get("conv_C_bias")))
         dt_v = F.softplus(dt_raw.to(_F32) + p["dt_bias"])
-        y, _ = ssd_chunked(
-            xs.reshape(b, t, h, pd),
-            dt_v,
-            A,
-            Bp.reshape(b, t, g, n),
-            Cp.reshape(b, t, g, n),
-            chunk=chunk,
-            intra_dtype=s.intra_dtype,
-        )
+        with ssd_span(b, t, s, chunk, keeps="output"):
+            y, _ = ssd_chunked(
+                xs.reshape(b, t, h, pd),
+                dt_v,
+                A,
+                Bp.reshape(b, t, g, n),
+                Cp.reshape(b, t, g, n),
+                chunk=chunk,
+                intra_dtype=s.intra_dtype,
+            )
         new_cache = None
     else:
         if t != 1:
             raise ValueError(f"decode path expects a single new token, got T={t}")
-        xs1, conv_x = conv_step(xs[:, 0], cache["conv_x"], p["conv_x"])
-        Bp1, conv_B = conv_step(Bp[:, 0], cache["conv_B"], p["conv_B"])
-        Cp1, conv_C = conv_step(Cp[:, 0], cache["conv_C"], p["conv_C"])
-        xs1, Bp1, Cp1 = F.silu(xs1), F.silu(Bp1), F.silu(Cp1)
-        dt_v = F.softplus(dt_raw[:, 0].to(_F32) + p["dt_bias"])
-        y1, ssm = ssd_step(
-            xs1.reshape(b, h, pd),
-            dt_v,
-            A,
-            Bp1.reshape(b, g, n),
-            Cp1.reshape(b, g, n),
-            cache["ssm"],
-        )
+        with obs.span("mamba.step"):
+            xs1, conv_x = conv_step(xs[:, 0], cache["conv_x"], p["conv_x"], p.get("conv_x_bias"))
+            Bp1, conv_B = conv_step(Bp[:, 0], cache["conv_B"], p["conv_B"], p.get("conv_B_bias"))
+            Cp1, conv_C = conv_step(Cp[:, 0], cache["conv_C"], p["conv_C"], p.get("conv_C_bias"))
+            xs1, Bp1, Cp1 = F.silu(xs1), F.silu(Bp1), F.silu(Cp1)
+            dt_v = F.softplus(dt_raw[:, 0].to(_F32) + p["dt_bias"])
+            y1, ssm = ssd_step(
+                xs1.reshape(b, h, pd),
+                dt_v,
+                A,
+                Bp1.reshape(b, g, n),
+                Cp1.reshape(b, g, n),
+                cache["ssm"],
+            )
         y = y1[:, None]  # (B,1,H,P)
         xs = xs1[:, None]
         new_cache = {"conv_x": conv_x, "conv_B": conv_B, "conv_C": conv_C, "ssm": ssm}

@@ -24,7 +24,10 @@ Three modes share one code path:
 MoE layers return the router's load-balancing loss, summed over layers as
 ``aux``.  The residual stream and the logits are constrained at the
 reference's sites (``distributed/api.py::constrain``): a no-op outside a
-``sharding_context``, the tensor itself inside one.
+``sharding_context``, the tensor itself inside one.  Granite's scalars
+(``embedding_multiplier``, ``attention_multiplier``,
+``residual_multiplier``, ``logits_scaling``) and NoPE (``rope_pct`` 0)
+launch nothing at their defaults.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from typing import Any, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.distributed.api import bind_context, constrain
 
 from . import attention as attn
@@ -50,7 +54,14 @@ from .layers import (
     rope_freqs,
     unembed,
 )
-from .mamba2 import apply_mamba, causal_conv, init_mamba, init_mamba_cache, ssd_chunked
+from .mamba2 import (
+    apply_mamba,
+    causal_conv,
+    init_mamba,
+    init_mamba_cache,
+    ssd_chunked,
+    ssd_span,
+)
 from .moe import apply_moe, init_moe
 from .params import tree_map
 
@@ -192,7 +203,7 @@ def _apply_attn(cfg, spec, p, x, *, positions, inv_freq, cache, pos, mode,
                 cache_len=None):
     h = cfg.n_heads
     rep = h // cfg.n_kv_heads
-    scale = cfg.hd**-0.5
+    scale = cfg.hd**-0.5 if cfg.attention_multiplier is None else cfg.attention_multiplier
     q, k, v = attn.qkv_proj(p, x, cfg, positions, inv_freq)
     window = None if spec.is_global else cfg.sliding_window
     int8 = cfg.kv_cache_dtype == "int8"
@@ -271,12 +282,15 @@ def _apply_layer(cfg, spec, p, x, *, positions, inv_freq, cache, pos, mode,
             cache=cache if mode == "decode" else None, chunk=cfg.ssm.chunk,
         )
         if mode == "prefill":
-            new_cache = _mamba_prefill_cache(p["mamba"], h_in, cfg)
+            if obs.on:
+                obs.count("mamba.prefill_tokens", h_in.shape[0] * h_in.shape[1])
+            with obs.span("mamba.prefill_state"):
+                new_cache = _mamba_prefill_cache(p["mamba"], h_in, cfg)
         elif mode == "decode":  # the new conv + ssm state, written in place
             for key, val in new_cache.items():
                 cache[key].copy_(val)
             new_cache = cache
-    x = x + h
+    x = _residual(cfg, x, h)
     x = constrain(x, ("data", None, None))
     if spec.ffn != "none":
         h2 = apply_norm(cfg.norm, p["norm2"], x)
@@ -285,9 +299,16 @@ def _apply_layer(cfg, spec, p, x, *, positions, inv_freq, cache, pos, mode,
             aux = aux + a
         else:
             h2 = apply_mlp(p["mlp"], h2, cfg.act)
-        x = x + h2
+        x = _residual(cfg, x, h2)
         x = constrain(x, ("data", None, None))
     return x, new_cache, aux
+
+
+def _residual(cfg, x, h):
+    """x + h, the branch scaled by ``residual_multiplier`` first."""
+    if cfg.residual_multiplier != 1.0:
+        h = h * cfg.residual_multiplier
+    return x + h
 
 
 def _mamba_prefill_cache(p, x_normed_in, cfg):
@@ -298,17 +319,18 @@ def _mamba_prefill_cache(p, x_normed_in, cfg):
     b, t, _ = x_normed_in.shape
     # recompute the projections (cheap relative to carrying them through)
     silu = torch.nn.functional.silu
-    xs = silu(causal_conv(x_normed_in @ p["w_x"].to(dt_), p["conv_x"]))
-    Bp = silu(causal_conv(x_normed_in @ p["w_B"].to(dt_), p["conv_B"]))
-    Cp = silu(causal_conv(x_normed_in @ p["w_C"].to(dt_), p["conv_C"]))
+    xs = silu(causal_conv(x_normed_in @ p["w_x"].to(dt_), p["conv_x"], p.get("conv_x_bias")))
+    Bp = silu(causal_conv(x_normed_in @ p["w_B"].to(dt_), p["conv_B"], p.get("conv_B_bias")))
+    Cp = silu(causal_conv(x_normed_in @ p["w_C"].to(dt_), p["conv_C"], p.get("conv_C_bias")))
     dt_v = torch.nn.functional.softplus(
         (x_normed_in @ p["w_dt"].to(dt_)).to(_F32) + p["dt_bias"]
     )
     A = -torch.exp(p["A_log"])
-    _, final = ssd_chunked(
-        xs.reshape(b, t, h, pd), dt_v, A,
-        Bp.reshape(b, t, g, n), Cp.reshape(b, t, g, n), chunk=s.chunk,
-    )
+    with ssd_span(b, t, s, s.chunk, keeps="state"):
+        _, final = ssd_chunked(
+            xs.reshape(b, t, h, pd), dt_v, A,
+            Bp.reshape(b, t, g, n), Cp.reshape(b, t, g, n), chunk=s.chunk,
+        )
     w = s.conv_width
 
     def tail(arr):  # the raw projections' last w - 1 steps, not the conv output
@@ -376,6 +398,8 @@ def embed_inputs(params, cfg, batch: dict, mode: str) -> torch.Tensor:
     x = embed(params["embed"], batch["tokens"].long(), dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=dtype, device=x.device)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     if cfg.vlm is not None and "patch_embeds" in batch:
         vis = apply_linear(params["mm_proj"], batch["patch_embeds"].to(dtype))
         x = torch.cat([vis, x], dim=1)
@@ -402,9 +426,9 @@ def forward(
     else:
         pos = None
         positions = torch.arange(t, dtype=torch.int32, device=dev)[None].expand(b, t)
-    inv_freq = (
+    inv_freq = (  # None: no rotary at all (attention-free, or NoPE)
         torch.from_numpy(rope_freqs(cfg.hd, cfg.rope_theta, cfg.rope_pct)).to(dev)
-        if cfg.attn_every
+        if cfg.attn_every and cfg.rope_pct > 0
         else None
     )
     aux = torch.zeros((), dtype=_F32, device=dev)
@@ -423,5 +447,7 @@ def forward(
         logits = unembed(params["embed"], x)
     else:
         logits = apply_linear(params["lm_head"], x)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     logits = constrain(logits, ("data", None, "model"))
     return logits, (new_caches if mode in ("prefill", "decode") else None), aux

@@ -17,7 +17,9 @@ With the tracer on (:mod:`repro_torch.obs`), each batch records an
 ``engine.batch`` span, an ``engine.queue`` span per request from its arrival
 (``submit(arrival=)``), ``engine.prefill`` and each step's
 ``engine.decode_step`` around its ``model.decode_step``, and the
-``engine.prompt_tokens`` / ``engine.prefill_tokens`` counters.
+``engine.prompt_tokens`` / ``engine.prefill_tokens`` counters; the bytes of
+the decode state a prefill hands over go to ``cache.ssm_bytes`` (Mamba2 conv
+and SSM state) and ``cache.kv_bytes`` (attention keys and values).
 
 The engine runs on ``device`` (the card by default; ``device="cpu"`` runs
 the kernels' plain versions).  ``device="cuda"`` without CUDA raises.
@@ -35,6 +37,7 @@ import torch
 from repro_torch import obs
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.models import model_for
+from repro_torch.models.params import tree_leaves_with_path
 
 PyTree = Any
 
@@ -48,6 +51,21 @@ class Request:
     t_arrival: float = 0.0  # time.monotonic() when the request reached the system
     t_first_token: float = 0.0
     t_done: float = 0.0
+
+
+_SSM_CACHE_KEYS = ("conv_x", "conv_B", "conv_C", "ssm")  # a Mamba2 layer's decode state
+
+
+def _cache_bytes(cache: PyTree) -> tuple[int, int]:
+    """(Mamba2 state bytes, attention KV bytes) of a decode cache."""
+    ssm = kv = 0
+    for path, leaf in tree_leaves_with_path(cache):
+        n = leaf.numel() * leaf.element_size()
+        if path[-1] in _SSM_CACHE_KEYS:
+            ssm += n
+        else:
+            kv += n
+    return ssm, kv
 
 
 FIRST_LEAF_PRED = (
@@ -155,6 +173,10 @@ class ServeEngine:
             for i, r in enumerate(batch_reqs):
                 r.out_tokens.append(first[i])
                 r.t_first_token = now
+            if obs.on:
+                ssm_bytes, kv_bytes = _cache_bytes(cache)
+                obs.count("cache.ssm_bytes", ssm_bytes)
+                obs.count("cache.kv_bytes", kv_bytes)
             for k in range(1, budget):
                 batch_in = {"tokens": last[:, None].to(torch.int32), "pos": t + k - 1}
                 # the step from its model call to its tokens on the host; the
