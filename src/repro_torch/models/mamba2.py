@@ -10,9 +10,11 @@ runs ``ssd_chunked``.
 Shapes: x (B,T,H,P) heads×headdim, dt (B,T,H), A (H,) [negative],
 B/C (B,T,G,N) with G groups broadcast over H heads, state (B,H,P,N).
 
-With the tracer on (:mod:`repro_torch.obs`), each ``ssd_chunked`` call of a
-model records a ``mamba.ssd`` span (:func:`ssd_span`) and each decode
-recurrence a ``mamba.step`` span.
+With the tracer on (:mod:`repro_torch.obs`), each SSD call of a model
+records a ``mamba.ssd`` span (:func:`ssd_span`), the building of a prompt's
+decode cache a ``mamba.prefill_state`` span and one of the counters
+``mamba.state_from_output`` / ``mamba.state_only_passes`` (which way its
+state came), and each decode recurrence a ``mamba.step`` span.
 """
 from __future__ import annotations
 
@@ -80,9 +82,9 @@ def conv_step(x_new: torch.Tensor, conv_state: torch.Tensor, kernel: torch.Tenso
 
 
 def ssd_span(rows: int, t: int, s, chunk: int, *, keeps: str):
-    """The ``mamba.ssd`` span of one ``ssd_chunked`` call over ``rows`` x
-    ``t`` steps of SSM config ``s`` at ``chunk``; ``keeps`` is ``output`` or
-    ``state``, the part of the result the caller uses."""
+    """The ``mamba.ssd`` span of one SSD call over ``rows`` x ``t`` steps of
+    SSM config ``s`` at ``chunk``; ``keeps`` is ``output``, ``state`` or
+    ``both``, the part of the result the caller uses."""
     return obs.span("mamba.ssd", rows=rows, t=t, heads=s.n_heads, head_dim=s.head_dim,
                     d_state=s.d_state, chunk=chunk, keeps=keeps)
 
@@ -94,6 +96,41 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     diff = cs[..., :, None] - cs[..., None, :]  # sum over (j, i]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
     return torch.where(mask, diff, torch.full((), -torch.inf, dtype=diff.dtype, device=a.device))
+
+
+def _chunks(v: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B,T,...) -> (B,nc,Q,...), T padded with zeros to whole chunks (padded
+    steps have dt = 0: no decay, no input)."""
+    b, t = v.shape[:2]
+    nc = -(-t // chunk)
+    if nc * chunk != t:
+        v = F.pad(v, (0, 0) * (v.dim() - 2) + (0, nc * chunk - t))
+    return v.reshape(b, nc, chunk, *v.shape[2:])
+
+
+def _ssd_prepare(x, dt, A, Bm, *, chunk: int, cdt, init_state):
+    """What the output and the final state of the chunked SSD share: B
+    repeated over heads (B,nc,Q,H,N), the per-step log-decays ``a`` and their
+    within-chunk cumsum (B,nc,Q,H), dt·x (B,nc,Q,H,P) and the decays to each
+    chunk's end (B,nc,Q,H) in ``cdt``, each chunk's whole decay (B,nc,H) and
+    the initial state (B,H,P,N) in float32."""
+    b, _, h, p = x.shape
+    dtc = _chunks(dt, chunk).to(_F32)
+    Bh = torch.repeat_interleave(_chunks(Bm, chunk), h // Bm.shape[2], dim=3)
+    a = dtc * A  # log-decay per step
+    a_cum = torch.cumsum(a, dim=2)  # within-chunk cumulative
+    dtx = (_chunks(x, chunk).to(_F32) * dtc[..., None]).to(cdt)
+    decay_to_end = torch.exp(a_cum[:, :, -1:, :] - a_cum).to(cdt)
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])
+    s = (init_state.to(_F32) if init_state is not None
+         else torch.zeros((b, h, p, Bm.shape[3]), dtype=_F32, device=x.device))
+    return Bh, a, a_cum, dtx, decay_to_end, chunk_decay, s
+
+
+def _next_state(s, Bh_c, decay_to_end_c, dtx_c, chunk_decay_c):
+    """One chunk of the inter-chunk pass: S_out = S_c + exp(Σa) · S_in."""
+    s_c = torch.einsum("bqhn,bqh,bqhp->bhpn", Bh_c, decay_to_end_c, dtx_c).to(_F32)
+    return s_c + chunk_decay_c[..., None, None] * s
 
 
 def ssd_chunked(
@@ -114,56 +151,52 @@ def ssd_chunked(
     float32.
     """
     b, t, h, p = x.shape
-    g, n = Bm.shape[2], Bm.shape[3]
-    rep = h // g
-    nc = -(-t // chunk)
-    pad = nc * chunk - t
-    if pad:  # padded steps have dt = 0: no decay, no input
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
-    q = chunk
-    # reshape to chunks: (B,nc,Q,...)
-    xc = x.reshape(b, nc, q, h, p)
-    dtc = dt.reshape(b, nc, q, h).to(_F32)
-    Bc = Bm.reshape(b, nc, q, g, n)
-    Cc = Cm.reshape(b, nc, q, g, n)
-    # broadcast groups to heads
-    Bh = torch.repeat_interleave(Bc, rep, dim=3)  # (B,nc,Q,H,N)
-    Ch = torch.repeat_interleave(Cc, rep, dim=3)
-
-    a = dtc * A  # (B,nc,Q,H) log-decay per step
-    a_cum = torch.cumsum(a, dim=2)  # within-chunk cumulative
     cdt = torch.bfloat16 if intra_dtype == "bf16" else _F32
+    Bh, a, a_cum, dtx, decay_to_end, chunk_decay, s = _ssd_prepare(
+        x, dt, A, Bm, chunk=chunk, cdt=cdt, init_state=init_state)
+    Ch = torch.repeat_interleave(_chunks(Cm, chunk), h // Cm.shape[2], dim=3)
+    nc = dtx.shape[1]
 
     # 1) intra-chunk (diagonal blocks): Y = (L ∘ (C Bᵀ)) (dt·x)
     L = torch.exp(_segsum(a.permute(0, 1, 3, 2))).to(cdt)  # (B,nc,H,Q,Q)
     scores = torch.einsum("bcqhn,bcshn->bchqs", Ch, Bh).to(cdt)
-    dtx = (xc.to(_F32) * dtc[..., None]).to(cdt)  # (B,nc,Q,H,P)
     y_diag = torch.einsum("bchqs,bcshp->bcqhp", scores * L, dtx).to(_F32)
 
     # 2-4) inter-chunk pass: per chunk, y_off = C · exp(a_cum) · S_in and
     # S_out = S_c + exp(Σa) · S_in, with S_c built inside the loop
-    decay_to_end = torch.exp(a_cum[:, :, -1:, :] - a_cum).to(cdt)  # (B,nc,Q,H)
-    chunk_decay = torch.exp(a_cum[:, :, -1, :])  # (B,nc,H)
     decay_from_start = torch.exp(a_cum).to(cdt)  # (B,nc,Q,H)
     Bhc = Bh.to(cdt)
     Chc = Ch.to(cdt)
-
-    s = (init_state.to(_F32) if init_state is not None
-         else torch.zeros((b, h, p, n), dtype=_F32, device=x.device))
     y_off = []
     for ci in range(nc):
         y_off.append(torch.einsum("bqhn,bqh,bhpn->bqhp", Chc[:, ci],
                                   decay_from_start[:, ci], s.to(cdt)))
-        s_c = torch.einsum("bqhn,bqh,bqhp->bhpn", Bhc[:, ci], decay_to_end[:, ci],
-                           dtx[:, ci]).to(_F32)
-        s = s_c + chunk_decay[:, ci][..., None, None] * s
+        s = _next_state(s, Bhc[:, ci], decay_to_end[:, ci], dtx[:, ci], chunk_decay[:, ci])
     y_off = torch.stack(y_off, dim=1)  # (B,nc,Q,H,P) in cdt
 
-    y = (y_diag + y_off.to(_F32)).reshape(b, nc * q, h, p)[:, :t]
+    y = (y_diag + y_off.to(_F32)).reshape(b, nc * chunk, h, p)[:, :t]
     return y.to(x.dtype), s
+
+
+def ssd_final_state(
+    x: torch.Tensor,  # (B,T,H,P)
+    dt: torch.Tensor,  # (B,T,H) — post-softplus
+    A: torch.Tensor,  # (H,) negative
+    Bm: torch.Tensor,  # (B,T,G,N)
+    *,
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,  # (B,H,P,N)
+) -> torch.Tensor:
+    """``ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)[1]``
+    bit for bit: the same float32 preparation and inter-chunk state pass,
+    without C and the decay matrices, scores and products that only the
+    output reads."""
+    Bh, _, _, dtx, decay_to_end, chunk_decay, s = _ssd_prepare(
+        x, dt, A, Bm, chunk=chunk, cdt=_F32, init_state=init_state)
+    Bhc = Bh.to(_F32)
+    for ci in range(dtx.shape[1]):
+        s = _next_state(s, Bhc[:, ci], decay_to_end[:, ci], dtx[:, ci], chunk_decay[:, ci])
+    return s
 
 
 def ssd_step(
@@ -198,9 +231,15 @@ def apply_mamba(
     *,
     cache: Optional[PyTree] = None,  # decode: conv+ssm state
     chunk: int = 256,
+    prefill_cache: bool = False,
 ) -> tuple[torch.Tensor, Optional[PyTree]]:
-    """Returns (y (B,T,d), new decode cache or None).  The decode cache is a
-    new dict; the caller writes it into its buffers."""
+    """Returns (y (B,T,d), decode cache or None).  In decode (``cache``
+    given) the cache is the new conv + ssm state, a new dict the caller
+    writes into its buffers.  Over a prompt (no ``cache``) it is the prompt's
+    decode cache when ``prefill_cache`` asks for one: the raw projections'
+    last w − 1 steps and the SSD's float32 final state.  With float32
+    intra-chunk tensors that state is the output's own SSD's; with bf16 ones
+    a float32 state-only pass (:func:`ssd_final_state`) computes it."""
     s = cfg.ssm
     h, pd, g, n = s.n_heads, s.head_dim, s.n_groups, s.d_state
     dt_ = x.dtype
@@ -213,12 +252,15 @@ def apply_mamba(
     A = -torch.exp(p["A_log"])  # (H,)
 
     if cache is None:
+        # the decode conv state's history: the raw projections
+        raw = {"conv_x": xs, "conv_B": Bp, "conv_C": Cp} if prefill_cache else None
         xs = F.silu(causal_conv(xs, p["conv_x"], p.get("conv_x_bias")))
         Bp = F.silu(causal_conv(Bp, p["conv_B"], p.get("conv_B_bias")))
         Cp = F.silu(causal_conv(Cp, p["conv_C"], p.get("conv_C_bias")))
         dt_v = F.softplus(dt_raw.to(_F32) + p["dt_bias"])
-        with ssd_span(b, t, s, chunk, keeps="output"):
-            y, _ = ssd_chunked(
+        state_from_output = prefill_cache and s.intra_dtype == "f32"
+        with ssd_span(b, t, s, chunk, keeps="both" if state_from_output else "output"):
+            y, final = ssd_chunked(
                 xs.reshape(b, t, h, pd),
                 dt_v,
                 A,
@@ -228,6 +270,18 @@ def apply_mamba(
                 intra_dtype=s.intra_dtype,
             )
         new_cache = None
+        if prefill_cache:
+            with obs.span("mamba.prefill_state"):
+                w = s.conv_width
+                new_cache = {k: v[:, -(w - 1):, :].contiguous() for k, v in raw.items()}
+                if state_from_output:
+                    obs.count("mamba.state_from_output", 1)
+                else:
+                    obs.count("mamba.state_only_passes", 1)
+                    with ssd_span(b, t, s, chunk, keeps="state"):
+                        final = ssd_final_state(xs.reshape(b, t, h, pd), dt_v, A,
+                                                Bp.reshape(b, t, g, n), chunk=chunk)
+                new_cache["ssm"] = final
     else:
         if t != 1:
             raise ValueError(f"decode path expects a single new token, got T={t}")

@@ -54,14 +54,7 @@ from .layers import (
     rope_freqs,
     unembed,
 )
-from .mamba2 import (
-    apply_mamba,
-    causal_conv,
-    init_mamba,
-    init_mamba_cache,
-    ssd_chunked,
-    ssd_span,
-)
+from .mamba2 import apply_mamba, init_mamba, init_mamba_cache
 from .moe import apply_moe, init_moe
 from .params import tree_map
 
@@ -280,12 +273,11 @@ def _apply_layer(cfg, spec, p, x, *, positions, inv_freq, cache, pos, mode,
         h, new_cache = apply_mamba(
             p["mamba"], h_in, cfg,
             cache=cache if mode == "decode" else None, chunk=cfg.ssm.chunk,
+            prefill_cache=mode == "prefill",
         )
         if mode == "prefill":
             if obs.on:
                 obs.count("mamba.prefill_tokens", h_in.shape[0] * h_in.shape[1])
-            with obs.span("mamba.prefill_state"):
-                new_cache = _mamba_prefill_cache(p["mamba"], h_in, cfg)
         elif mode == "decode":  # the new conv + ssm state, written in place
             for key, val in new_cache.items():
                 cache[key].copy_(val)
@@ -309,39 +301,6 @@ def _residual(cfg, x, h):
     if cfg.residual_multiplier != 1.0:
         h = h * cfg.residual_multiplier
     return x + h
-
-
-def _mamba_prefill_cache(p, x_normed_in, cfg):
-    """Build decode cache from a prefill pass (conv tail + final SSD state)."""
-    s = cfg.ssm
-    h, pd, g, n = s.n_heads, s.head_dim, s.n_groups, s.d_state
-    dt_ = x_normed_in.dtype
-    b, t, _ = x_normed_in.shape
-    # recompute the projections (cheap relative to carrying them through)
-    silu = torch.nn.functional.silu
-    xs = silu(causal_conv(x_normed_in @ p["w_x"].to(dt_), p["conv_x"], p.get("conv_x_bias")))
-    Bp = silu(causal_conv(x_normed_in @ p["w_B"].to(dt_), p["conv_B"], p.get("conv_B_bias")))
-    Cp = silu(causal_conv(x_normed_in @ p["w_C"].to(dt_), p["conv_C"], p.get("conv_C_bias")))
-    dt_v = torch.nn.functional.softplus(
-        (x_normed_in @ p["w_dt"].to(dt_)).to(_F32) + p["dt_bias"]
-    )
-    A = -torch.exp(p["A_log"])
-    with ssd_span(b, t, s, s.chunk, keeps="state"):
-        _, final = ssd_chunked(
-            xs.reshape(b, t, h, pd), dt_v, A,
-            Bp.reshape(b, t, g, n), Cp.reshape(b, t, g, n), chunk=s.chunk,
-        )
-    w = s.conv_width
-
-    def tail(arr):  # the raw projections' last w - 1 steps, not the conv output
-        return (x_normed_in @ arr.to(dt_))[:, -(w - 1):, :].contiguous()
-
-    return {
-        "conv_x": tail(p["w_x"]),
-        "conv_B": tail(p["w_B"]),
-        "conv_C": tail(p["w_C"]),
-        "ssm": final,
-    }
 
 
 # ----------------------------------------------------------------------

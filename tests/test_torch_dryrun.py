@@ -10,8 +10,7 @@
   (4 sequences of 256 tokens, two microbatches for train):
   - on one device, its ``analyze_hlo`` FLOPs against the port's traced
     FLOPs, within 0.1 %, for deepseek_7b, granite_moe_1b and mamba2_130m,
-    prefill and train, and deepseek_7b's decode; except mamba2_130m's
-    prefill, whose measured ratio is pinned (see ``PINNED``);
+    prefill and train, and deepseek_7b's decode;
   - on (4, 2) and (2, 2, 2) meshes, its ``memory_analysis()`` against the
     port's byte counts from the sharding rules, train, prefill and decode
     of deepseek_7b and granite_moe_1b: argument bytes equal byte for byte,
@@ -62,14 +61,6 @@ FLOP_CASES = [("deepseek_7b", "prefill"), ("deepseek_7b", "train"), ("deepseek_7
               ("mamba2_130m", "prefill"), ("mamba2_130m", "train")]
 MEMORY_CASES = [(arch, kind, mesh) for arch in ("deepseek_7b", "granite_moe_1b")
                 for kind in ("train", "prefill", "decode") for mesh in ((4, 2), (2, 2, 2))]
-# The port's mamba2_130m prefill does 1.734x the reference's compiled FLOPs
-# at this shape (778,567,680 against 449,052,672).  The extra is real work
-# of the port's eager program: with the prefill cache, each Mamba layer runs
-# ``ssd_chunked`` a second time (``models/transformer.py::_mamba_prefill_cache``)
-# for the final state the first call already computed and dropped
-# (``models/mamba2.py``); the reference's program runs it twice as well,
-# but XLA removes the first call's unused half as dead code.
-PINNED = {("mamba2_130m", "prefill"): 1.734}
 # A train step's collectives, reference minus port, (count, bytes) after the
 # port's bf16 bytes are doubled, each itemised in ROADMAP.md Queue 3; equal
 # on (4, 2) and (2, 2, 2).  The counts differ mostly because XLA's
@@ -192,10 +183,7 @@ def test_one_device_flops_match_reference(ref, smoke, arch, kind):
     counts, _ = dryrun.trace_counts(lowered, scale=False)
     want = ref[(arch, kind, (1, 1))]["flops"]
     ratio = counts["flops"] / want
-    if (arch, kind) in PINNED:
-        assert abs(ratio - PINNED[(arch, kind)]) < 5e-4, ratio
-    else:
-        assert abs(ratio - 1) <= 1e-3, ratio
+    assert abs(ratio - 1) <= 1e-3, ratio
     assert lowered.memory["argument_size_in_bytes"] == ref[(arch, kind, (1, 1))]["argument"]
 
 

@@ -307,14 +307,14 @@ def test_expert_positions_kernel_at_the_cells_full_batch():
 MAMBA_LAYERS = sum(1 for s in SMOKE.layer_specs() if s.mixer == "mamba")
 
 
-def _serve(traced: bool, lens=(40, 24, 33), new=3):
+def _serve(traced: bool, lens=(40, 24, 33), new=3, cfg=SMOKE):
     if traced:
         obs.enable()
-    eng = ServeEngine(SMOKE, max_batch=4, device="cpu")
-    eng.set_params(model_for(SMOKE).init(torch.Generator().manual_seed(0)))
+    eng = ServeEngine(cfg, max_batch=4, device="cpu")
+    eng.set_params(model_for(cfg).init(torch.Generator().manual_seed(0)))
     rng = np.random.default_rng(0)
     for n in lens:
-        eng.submit(rng.integers(1, SMOKE.vocab_size, n), new)
+        eng.submit(rng.integers(1, cfg.vocab_size, n), new)
     caches = []
     real = eng.model.prefill
 
@@ -329,16 +329,22 @@ def _serve(traced: bool, lens=(40, 24, 33), new=3):
     return reqs, obs.export(), caches[0]
 
 
-def test_prefill_records_the_mamba_spans_with_their_attributes():
-    _, ex, _ = _serve(True)
+@pytest.mark.parametrize("intra_dtype", ["f32", "bf16"])
+def test_prefill_records_the_mamba_spans_with_their_attributes(intra_dtype):
+    """With float32 intra-chunk tensors the output's SSD also gives the
+    decode state (``keeps="both"``); with bf16 ones a state-only pass under
+    ``mamba.prefill_state`` follows it."""
+    cfg = dataclasses.replace(SMOKE, ssm=dataclasses.replace(SMOKE.ssm, intra_dtype=intra_dtype))
+    _, ex, _ = _serve(True, cfg=cfg)
     spans = [s for s in ex["spans"] if s["name"].startswith("mamba.")]
     ssd = [s for s in spans if s["name"] == "mamba.ssd"]
     base = {"rows": 3, "t": 40, "heads": 16, "head_dim": 16, "d_state": 16, "chunk": 16}
-    assert [s["attrs"] for s in ssd] == [dict(base, keeps="output"),
-                                         dict(base, keeps="state")] * MAMBA_LAYERS
+    per_layer = ([dict(base, keeps="both")] if intra_dtype == "f32"
+                 else [dict(base, keeps="output"), dict(base, keeps="state")])
+    assert [s["attrs"] for s in ssd] == per_layer * MAMBA_LAYERS
     state = {s["id"]: s for s in spans if s["name"] == "mamba.prefill_state"}
     assert len(state) == MAMBA_LAYERS
-    assert all(s["parent"] in state for s in ssd if s["attrs"]["keeps"] == "state")
+    assert all((s["parent"] in state) == (s["attrs"]["keeps"] == "state") for s in ssd)
     steps = [s for s in spans if s["name"] == "mamba.step"]
     assert len(steps) == 2 * MAMBA_LAYERS  # budget 3: two decode steps
     prefill = next(s for s in ex["spans"] if s["name"] == "engine.prefill")
