@@ -1164,9 +1164,8 @@ def time_k1(ops) -> dict:
 def time_k2(nodes, n_nodes: int) -> dict:
     """K2 on the giga plan with a cold L2 (a rotation of copies of the node
     ids, each with its own counts), ``counts.zero_()`` inside each timed
-    call: the kernel, the first design's kernel (its timing-only C entry) in
-    turns (new, old, old, new), each also warm; the plain version and
-    ``torch.bincount`` over the same rotation."""
+    call, and warm; the plain version and ``torch.bincount`` over the same
+    rotation."""
     import torch
 
     from repro_torch.kernels import _build
@@ -1178,18 +1177,17 @@ def time_k2(nodes, n_nodes: int) -> dict:
             for _ in range(nsets)]
     lib = _build.library("cap_chain")
 
-    def call(entry, ids, counts):
+    def call(ids, counts):
         def launch():
             counts.zero_()
-            rc = entry(ids.data_ptr(), n, counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            rc = lib.repro_nic_flow_counts(ids.data_ptr(), n, counts.data_ptr(),
+                                           torch.cuda.current_stream().cuda_stream)
             check(rc == 0, f"K2 launch returned {rc}")
         return launch
 
-    new = [call(lib.repro_nic_flow_counts, *st) for st in sets]
-    old = [call(lib.repro_nic_flow_counts_scalar, *st) for st in sets]
+    launches = [call(*st) for st in sets]
     reps = nsets * 10
-    runs = [graph_ms(rotation(new), reps), graph_ms(rotation(old), reps),
-            graph_ms(rotation(old), reps), graph_ms(rotation(new), reps)]
+    cold_ms = graph_ms(rotation(launches), reps)
     want = torch.bincount(nodes, minlength=n_nodes)
     for ids, counts in sets[:2]:
         check(torch.equal(counts, want), "K2 timed output vs bincount")
@@ -1199,9 +1197,8 @@ def time_k2(nodes, n_nodes: int) -> dict:
         return lambda: torch.zeros(n_nodes, dtype=torch.int64, device="cuda").index_add_(0, ids, ones)
 
     out = dict(
-        n=n, n_nodes=n_nodes, cold_sets=nsets, ms=(runs[0] + runs[3]) / 2,
-        old_design_ms=(runs[1] + runs[2]) / 2, abba_ms=runs,
-        warm_ms=graph_ms(new[0], reps=100), old_design_warm_ms=graph_ms(old[0], reps=100),
+        n=n, n_nodes=n_nodes, cold_sets=nsets, ms=cold_ms,
+        warm_ms=graph_ms(launches[0], reps=100),
         plain_ms=graph_ms(rotation([plain(ids) for ids, _ in sets]), reps),
         wrapper_ms=event_ms(rotation([lambda ids=ids: cc.nic_flow_counts(ids, n_nodes)
                                       for ids, _ in sets]), iters=reps),
@@ -3604,8 +3601,7 @@ def main() -> int:
          "bound_ms": k2_t["bound_ms"], "bound_by": k2_t["bound_by"],
          "library_ms": k2_t["library_ms"],
          "on_main_path": False, "n": k2_t["n"], "wrapper_ms": k2_t["wrapper_ms"],
-         "timing": "cold L2", "old_design_ms": k2_t["old_design_ms"], "warm_ms": k2_t["warm_ms"],
-         "old_design_warm_ms": k2_t["old_design_warm_ms"], "abba_ms": k2_t["abba_ms"],
+         "timing": "cold L2", "warm_ms": k2_t["warm_ms"],
          "giga_plan": giga["k2_plan"], "registers": build["k2"].get("registers"),
          "spill_stores": build["k2"].get("spill_stores")},
         {"name": "flash_attention_bhtd", "route": "cuda", "source": csrc + "flash_attention.cu",

@@ -52,8 +52,6 @@ LIBRARIES = {
         "repro_cap_chain_front": [_P] * 4 + [_I64] + [_F64] * 4 + [_P],
         # nodes, n, counts, stream
         "repro_nic_flow_counts": [_P, _I64, _P, _P],
-        # the same, through the first design's kernel (timing only)
-        "repro_nic_flow_counts_scalar": [_P, _I64, _P, _P],
     }),
     "flash_attention": ("flash_attention.cu", FLASH_NVCC_FLAGS, {
         # q, k, v, o, bh, t, hd, dtype, scale, window, stream

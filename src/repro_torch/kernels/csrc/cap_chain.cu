@@ -37,8 +37,7 @@
 // the order of the adds.  Contention is low: on the giga tier's plan (1 M
 // flows, 100,001 NICs, 99,649 of them sources) no NIC has more than 28
 // flows, and 32 consecutive flows have 17 distinct sources on average
-// (median 17).  The cost of the first design (`nic_flow_counts_scalar_kernel`,
-// kept for timing only) was one 8-byte load and one global atomic a flow,
+// (median 17).  One 8-byte load and one global atomic a flow would make
 // ~1 M separate L2 atomics.  Here a thread loads two ids with one 16-byte
 // load (one id peeled at the head when the array is only 8-byte aligned, a
 // scalar tail when the rest is odd); a warp's 32 lanes then hold 64
@@ -130,18 +129,6 @@ __global__ void nic_flow_counts_kernel(const int64_t* __restrict__ nodes,
     }
 }
 
-// The first design: one 8-byte load and one global atomic a flow, in a
-// grid-stride loop (timed beside the kernel above; the wrapper never calls it).
-__global__ void nic_flow_counts_scalar_kernel(const int64_t* __restrict__ nodes,
-                                              int64_t n,
-                                              unsigned long long* __restrict__ counts) {
-    const int64_t stride = (int64_t)blockDim.x * gridDim.x;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += stride) {
-        atomicAdd(&counts[nodes[i]], 1ULL);
-    }
-}
-
 int blocks_for(int64_t n) {
     const int64_t b = (n + kThreads - 1) / kThreads;
     return (int)(b < kMaxBlocks ? b : kMaxBlocks);
@@ -202,14 +189,5 @@ extern "C" int repro_nic_flow_counts(const int64_t* nodes, int64_t n,
     const int64_t b = (n / 2 + kThreads - 1) / kThreads;
     const int blocks = (int)(b < 1 ? 1 : b < kCountBlocks ? b : kCountBlocks);
     nic_flow_counts_kernel<<<blocks, kThreads, 0, stream>>>(nodes, n, counts);
-    return (int)cudaGetLastError();
-}
-
-// The first design's kernel on the same operands, for timing beside the above.
-extern "C" int repro_nic_flow_counts_scalar(const int64_t* nodes, int64_t n,
-                                            unsigned long long* counts,
-                                            cudaStream_t stream) {
-    if (n == 0) return 0;
-    nic_flow_counts_scalar_kernel<<<blocks_for(n), kThreads, 0, stream>>>(nodes, n, counts);
     return (int)cudaGetLastError();
 }

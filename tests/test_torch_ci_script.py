@@ -3,7 +3,8 @@
 The script is ``scripts/ci.sh`` on the port: each of its ``python - <<'PY'``
 heredocs drives the port's engines with ``device="cpu"`` and ends by
 printing ``<name> smoke ok: ...``.  Here every heredoc runs in a fresh
-interpreter with the script's ``PYTHONPATH``, one intra-op thread and,
+interpreter with the script's ``PYTHONPATH``, the test worker's share of the
+cores (inherited: the root ``conftest.py`` sets it) and,
 where the host permits, a higher scheduling priority than the other test
 workers; its final pytest line (the port's tests, this file among them) is
 not run.
@@ -38,11 +39,11 @@ def test_the_script_has_eight_smokes_and_ends_in_the_port_tests():
 def test_smoke_prints_its_ok_line(i, name):
     body = _heredocs()[i]
     assert "from repro_torch" in body
-    # The script runs each smoke alone; here other test workers keep every
-    # core busy, and the vector smoke's events/s fell under its floor.  So
-    # the smoke runs with one intra-op thread (the engines gain nothing from
-    # torch's pool) and, where the host allows it, ahead of those workers.
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    # The script runs each smoke alone; here other test workers keep the
+    # other cores busy, and the vector smoke's events/s fell under its floor
+    # beside them.  So the smoke runs, where the host allows it, ahead of
+    # those workers, with the worker's share of the cores that it inherits.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-"], input=AHEAD_OF_NEIGHBOURS + body, capture_output=True,
                           text=True, cwd=ROOT, env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -40,16 +40,6 @@ class OpLog(TorchDispatchMode):
 
 
 @pytest.fixture(autouse=True)
-def one_thread():
-    """These models are small: one intra-op thread each, so that a test
-    beside other test processes does not wait on idle threads."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-@pytest.fixture(autouse=True)
 def fresh_tracer():
     obs.disable()
     obs.reset()

@@ -10,8 +10,7 @@ config with float32 and bf16 intra-chunk tensors and for mamba2_130m's and
 jamba_v01_52b's smoke configs, on prompts that are not whole chunks, one
 step short of a chunk, and left-padded; greedy tokens through
 ``ServeEngine`` are equal; ``ssd_final_state`` equals ``ssd_chunked``'s
-state; the counters say which way each layer's state came.  Pinned to one
-intra-op thread, as the other small-model files are."""
+state; the counters say which way each layer's state came."""
 import dataclasses
 from typing import Optional
 
@@ -36,14 +35,6 @@ CONFIGS = {
     "mamba2_130m": get_smoke("mamba2_130m"),
     "jamba_v01_52b": get_smoke("jamba_v01_52b"),
 }
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
